@@ -1,0 +1,111 @@
+"""The audio->pose serving path of the port.
+
+:func:`build_pipeline` is the twin of ``bench.py:31-73``: raw waveform at
+45.6 kHz -> pose-rate log-mel (``spec_log_mel_512`` strided by
+``round(89 / 15) = 6``, hop 3072, 64 frames) -> ``Generator`` (eval) ->
+pose (B, 64, 104).  :func:`entry` is the twin of
+``__graft_entry__.py:18-31``.
+
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU; they raise when CUDA is absent.  Building a pipeline on CUDA turns
+TF32 off for the whole process (``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32``): cuDNN would otherwise run the
+f32 convolutions in TF32, about three decimal digits.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from a2m_torch.audio import frontend
+from a2m_torch.config import GeneratorConfig
+from a2m_torch.constants import AUDIO_FS_MAP, FRAMES_PER_WINDOW
+from a2m_torch.models.generator import Generator
+from a2m_torch.weights import from_jax_variables, load_generator_npz
+
+SR = 45600            # nominal PATS sample rate
+CLIP_SECONDS = 4.3
+FLAGSHIP_NPZ = Path(__file__).resolve().parents[1] / 'artifacts' / \
+    'flagship_best_gen.npz'
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for CUDA when it is absent, and
+    turns TF32 off for CUDA (see the module docstring)."""
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError('a2m_torch: CUDA is not available; pass '
+                               'device="cpu" to run the port on the CPU')
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def pose_rate_spec() -> frontend.MelSpec:
+    """log_mel_512 at 45.6 kHz with the 89 Hz -> 15 fps stride folded into
+    the hop."""
+    stride = round(AUDIO_FS_MAP['log_mel_512'] / 15)
+    return frontend.strided_spec(frontend.spec_log_mel_512(SR), stride)
+
+
+def load_generator(npz=None, config: GeneratorConfig = GeneratorConfig(),
+                   device='cuda') -> Generator:
+    """Generator in eval mode with a2m weights from a packed ``.npz``
+    (default: the committed flagship)."""
+    dev = resolve_device(device)
+    model = Generator(config)
+    flat, _ = load_generator_npz(FLAGSHIP_NPZ if npz is None else npz)
+    model.load_state_dict(from_jax_variables(flat, model))
+    return model.to(dev).eval()
+
+
+def audio_to_pose_fn(model: Generator, device):
+    """``audio_to_pose(waveform (B, N)) -> pose (B, 64, 104)`` around an
+    eval-mode generator that lies on ``device``."""
+    dev = torch.device(device)
+    spec = pose_rate_spec()
+
+    def audio_to_pose(waveform) -> torch.Tensor:
+        with torch.inference_mode():
+            y = torch.as_tensor(waveform).to(dev)
+            feats = frontend.log_mel(y, spec, n_frames=FRAMES_PER_WINDOW)
+            return model(feats)
+
+    return audio_to_pose
+
+
+def build_pipeline(npz=None, batch: int = 128, fused_gcn: bool = True,
+                   device='cuda'):
+    """The flagship audio->pose path.  ``fused_gcn`` routes both GCN stacks
+    through the fused stack kernel with bf16 operands (a2m's
+    ``fused_gcn=True, fused_rolled=True`` of ``bench.py:86``).  ``batch``
+    sizes one warm-up call on silence that builds the kernels and lets cuDNN
+    pick its algorithms; 0 skips it."""
+    dev = resolve_device(device)
+    config = GeneratorConfig(fused_gcn=fused_gcn)
+    audio_to_pose = audio_to_pose_fn(load_generator(npz, config, dev), dev)
+    if batch:
+        audio_to_pose(torch.zeros(batch, int(SR * CLIP_SECONDS),
+                                  device=dev))
+    return audio_to_pose
+
+
+def entry(device='cuda'):
+    """(fn, example_args): the flagship generator forward on a random
+    log-mel window (4, 64, 128) -> pose (4, 64, 104), random weights from
+    seed 0."""
+    dev = resolve_device(device)
+    torch.manual_seed(0)
+    model = Generator().to(dev).eval()
+    audio = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (4, FRAMES_PER_WINDOW, 128)), dtype=torch.float32, device=dev)
+
+    def fn(audio):
+        with torch.inference_mode():
+            return model(audio)
+
+    return fn, (audio,)

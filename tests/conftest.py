@@ -47,3 +47,8 @@ HIGHEST = jax.lax.Precision.HIGHEST
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'slow: full-size runs kept out of tier-1 (-m "not slow")')
