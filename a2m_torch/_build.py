@@ -3,8 +3,8 @@
 Each ``a2m_torch/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, under ``build/a2m_torch/``
 at the repository root (ignored by git).  The file name carries a hash of
-the source and flags, so an edited source rebuilds and a built one loads at
-once.  Sources that are not built yet compile in parallel, one ``nvcc`` each.
+the source, the shared headers and the flags, so an edited source rebuilds
+and a built one loads at once.  Sources that are not built yet compile in parallel, one ``nvcc`` each.
 Nothing here runs at import time.
 """
 
@@ -29,6 +29,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     'gcn_stack': {
         'a2m_gcn_stack': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        'a2m_gcn_stack_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P],
+    },
+    'gcn_stack_bwd': {
+        'a2m_gcn_stack_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P],
+        'a2m_gcn_stack_bwd_blocks': [_I, _I, _I, _I, _I, _I],
     },
     'log_mel': {
         'a2m_log_mel': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -53,6 +60,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f'{name}.cu').read_bytes()
+    for header in sorted(CSRC.glob('*.cuh')):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'lib{name}-{digest[:12]}.so'
 

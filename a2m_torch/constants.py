@@ -2,8 +2,9 @@
 
 The port's own copy of what it needs from ``a2m/constants.py`` (the port
 imports nothing of ``a2m``): the body/hand skeleton graphs
-(``a2m/constants.py:24-130``) and the pose-rate audio constants
-(``:179-190``).
+(``a2m/constants.py:24-130``), the loss index tables (joint subset,
+angle triples, subset parents, ``:70-174``) and the pose-rate audio
+constants (``:179-190``).
 """
 
 from __future__ import annotations
@@ -31,8 +32,12 @@ PARENTS: tuple[int, ...] = (
     31, 48, 49, 50,
 )
 
+NUM_JOINTS = 52
 NUM_BODY_JOINTS = 10   # Neck..LEye
 NUM_HAND_JOINTS = 42   # LHandRoot..RHandLittle4
+
+#: joints relevant for losses and metrics: Nose(7), REye(8), LEye(9) dropped
+JOINT_SUBSET: np.ndarray = np.r_[range(7), range(10, NUM_JOINTS)]
 
 
 def body_parents() -> list[int]:
@@ -74,6 +79,44 @@ def adjacency_from_edges(edges: np.ndarray, num_nodes: int,
     if self_loops:
         adj = np.maximum(adj, np.eye(num_nodes, dtype=np.float32))
     return adj
+
+
+def _triples_from_parents(parents: list[int]) -> list[tuple[int, int, int]]:
+    """(parent, joint, first higher-indexed child) triples for the
+    joint-angle losses."""
+    triples = []
+    n = len(parents)
+    for i in range(n):
+        par = parents[i]
+        if par == -1:
+            continue
+        for j in range(i + 1, n):
+            if parents[j] == i:
+                triples.append((par, i, j))
+                break
+    return triples
+
+
+def hand_triples() -> np.ndarray:
+    t = _triples_from_parents(hand_parents())
+    return np.asarray(t, dtype=np.int32).reshape(-1, 3)
+
+
+def body_triples() -> np.ndarray:
+    t = _triples_from_parents(body_parents())
+    return np.asarray(t, dtype=np.int32).reshape(-1, 3)
+
+
+def subset_parents() -> np.ndarray:
+    """Parents re-indexed into JOINT_SUBSET space for the bone-length loss;
+    -1 where the parent is the root or lies outside the subset."""
+    subset = list(JOINT_SUBSET)
+    pos = {j: k for k, j in enumerate(subset)}
+    out = []
+    for j in subset:
+        p = PARENTS[j]
+        out.append(pos.get(p, -1) if p != -1 else -1)
+    return np.asarray(out, dtype=np.int32)
 
 
 POSE_FPS = 15                  # skeleton sampling rate (Hz)

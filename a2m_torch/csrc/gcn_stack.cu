@@ -1,8 +1,16 @@
-// Fused eval forward of the 5-layer GAT/GraphConv stack, CUDA C++ for sm_90a.
+// Fused forward of the 5-layer GAT/GraphConv stack, CUDA C++ for sm_90a, with
+// two entry points.
 //
-// Replaces the Pallas TPU kernel a2m/nn/pallas_gcn.py::_kernel (called by
-// _fused_impl / fused_gcn_stack, rolled variant _gat_rolled): one launch runs
-// every layer of the stack for a tile of skeleton graphs.
+// a2m_gcn_stack replaces the Pallas TPU kernel a2m/nn/pallas_gcn.py::_kernel
+// (called by _fused_impl / fused_gcn_stack, rolled variant _gat_rolled): one
+// launch runs every layer of the stack for a tile of skeleton graphs.
+// a2m_gcn_stack_fwd replaces a2m/nn/pallas_gcn.py::_fwd_kernel (called by
+// _fwd_with_residuals): the same forward under autograd, which also stores
+// the input of layers 2..L for the backward kernel (gcn_stack_bwd.cu).  It
+// writes L - 1 more (N, J, F) tensors, 654 MB against 219 MB for both stacks
+// of the flagship at N = 8192, all of it bytes on top of the same
+// arithmetic; the stores leave from the pass that already rounds x for the
+// layer's matmuls.
 //   GAT layers (1, 3, 5):  XW = X @ W; per head a_src = XW_h . att_src[h],
 //     a_dst = XW_h . att_dst[h]; e[i, j] = LeakyReLU_0.2(a_dst[i] + a_src[j])
 //     masked to adjacency + self-loops; softmax over j; out = mean_h(alpha_h
@@ -44,106 +52,20 @@
 //              ln_bias (F)
 // adj is (J, J) f32, A[dst, src], without self-loops.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "gcn_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowBlock = 8;      // rows per thread in the matmul micro-tile
-constexpr float kSlope = 0.2f;
-constexpr float kLnEps = 1e-6f;
 
-template <bool kPrecise>
-__device__ __forceinline__ float op(float v) {
-  if (kPrecise) return v;
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool kPrecise>
-__device__ __forceinline__ float4 op4(float4 v) {
-  return make_float4(op<kPrecise>(v.x), op<kPrecise>(v.y), op<kPrecise>(v.z),
-                     op<kPrecise>(v.w));
-}
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 w) {
-  acc[0] = fmaf(a, w.x, acc[0]);
-  acc[1] = fmaf(a, w.y, acc[1]);
-  acc[2] = fmaf(a, w.z, acc[2]);
-  acc[3] = fmaf(a, w.w, acc[3]);
-}
-
-__device__ __forceinline__ float leaky(float v) {
-  return v >= 0.f ? v : kSlope * v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// out[r, c] (+)= sum_k A[r, k] * op(W[k, c]) for r < R, c < C.
-// A is in shared memory (row stride lda) and already holds matmul operands
-// (rounded once when written); W is in device memory, (K, C) row-major.
-// A thread owns a micro-tile of kRowBlock rows x 4 columns: per 4 k it
-// reads kRowBlock float4 of A (a broadcast: a warp shares its rows) and 4
-// float4 of W (coalesced), for 16 * kRowBlock FMAs.  The same thread owns
-// the same outputs on every call with equal (R, C), so a second call with
-// accumulate=true needs no barrier in between.  K, C and lda are multiples
-// of 4.
-template <bool kPrecise>
-__device__ void mm(const float* A, int lda, const float* __restrict__ W,
-                   int K, int C, int R, float* out, int ldo,
-                   bool accumulate) {
-  const int groups = C / 4;
-  const int row_blocks = (R + kRowBlock - 1) / kRowBlock;
-  for (int item = threadIdx.x; item < groups * row_blocks;
-       item += blockDim.x) {
-    const int c = (item % groups) * 4;
-    const int r0 = (item / groups) * kRowBlock;
-    const float* rows[kRowBlock];
-#pragma unroll
-    for (int i = 0; i < kRowBlock; ++i) rows[i] = A + min(r0 + i, R - 1) * lda;
-    float acc[kRowBlock][4];
-#pragma unroll
-    for (int i = 0; i < kRowBlock; ++i)
-      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      float4 w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        w[q] = op4<kPrecise>(__ldg(reinterpret_cast<const float4*>(
-            W + (size_t)(k + q) * C + c)));
-#pragma unroll
-      for (int i = 0; i < kRowBlock; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(rows[i] + k);
-        fma4(acc[i], a.x, w[0]);
-        fma4(acc[i], a.y, w[1]);
-        fma4(acc[i], a.z, w[2]);
-        fma4(acc[i], a.w, w[3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRowBlock; ++i) {
-      if (r0 + i < R) {
-        float4* o = reinterpret_cast<float4*>(out + (r0 + i) * ldo + c);
-        float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        if (accumulate) {
-          const float4 prev = *o;
-          v.x += prev.x; v.y += prev.y; v.z += prev.z; v.w += prev.w;
-        }
-        *o = v;
-      }
-    }
-  }
-}
-
-template <bool kPrecise>
+// kStash selects the forward with stash (a2m's _fwd_kernel): the same
+// forward, and the f32 input of every layer after the first also goes to
+// xs (L - 1, N, J, F) for the backward kernel.  Without it xs is unused and
+// the instantiation is the gradient-free forward as it was.
+template <bool kPrecise, bool kStash>
 __global__ void __launch_bounds__(kThreads, 2)
 gcn_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
-                 const float* __restrict__ params,
+                 float* __restrict__ xs, const float* __restrict__ params,
                  const float* __restrict__ adj, int n, int J, int F, int H,
                  int L, int G) {
   extern __shared__ __align__(16) float smem[];
@@ -188,8 +110,17 @@ gcn_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
     // attention apply overwrites it, GraphConv in the first F columns of
     // xw_s (the neighbour sums take the next F)
     float* xo = gat ? out_s : xw_s;
-    for (int i = threadIdx.x; i < R * F; i += blockDim.x)
-      xo[i] = op<kPrecise>(x_s[i]);
+    if (kStash && layer > 0) {
+      float* stash = xs + ((size_t)(layer - 1) * n + g0) * J * F;
+      for (int i = threadIdx.x; i < R * F; i += blockDim.x) {
+        const float v = x_s[i];
+        stash[i] = v;
+        xo[i] = op<kPrecise>(v);
+      }
+    } else {
+      for (int i = threadIdx.x; i < R * F; i += blockDim.x)
+        xo[i] = op<kPrecise>(x_s[i]);
+    }
     __syncthreads();
 
     const float* bias;
@@ -370,17 +301,18 @@ size_t smem_floats(int J, int F, int H, int G) {
          + (size_t)J * J * 2 + J;
 }
 
-template <bool kPrecise>
-int launch(const float* x, float* y, const float* params, const float* adj,
-           int n, int J, int F, int H, int L, int G, cudaStream_t stream) {
+template <bool kPrecise, bool kStash>
+int launch(const float* x, float* y, float* xs, const float* params,
+           const float* adj, int n, int J, int F, int H, int L, int G,
+           cudaStream_t stream) {
   const size_t bytes = smem_floats(J, F, H, G) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gcn_stack_kernel<kPrecise>,
+      gcn_stack_kernel<kPrecise, kStash>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + G - 1) / G;
-  gcn_stack_kernel<kPrecise><<<blocks, kThreads, bytes, stream>>>(
-      x, y, params, adj, n, J, F, H, L, G);
+  gcn_stack_kernel<kPrecise, kStash><<<blocks, kThreads, bytes, stream>>>(
+      x, y, xs, params, adj, n, J, F, H, L, G);
   return (int)cudaGetLastError();
 }
 
@@ -403,8 +335,27 @@ int a2m_gcn_stack(const void* x, void* y, const void* params,
   const float* xp = (const float*)x;
   const float* pp = (const float*)params;
   const float* ap = (const float*)adj;
-  return precise ? launch<true>(xp, (float*)y, pp, ap, n, J, F, H, L, G, s)
-                 : launch<false>(xp, (float*)y, pp, ap, n, J, F, H, L, G, s);
+  return precise ? launch<true, false>(xp, (float*)y, nullptr, pp, ap, n, J,
+                                       F, H, L, G, s)
+                 : launch<false, false>(xp, (float*)y, nullptr, pp, ap, n, J,
+                                        F, H, L, G, s);
+}
+
+// The forward with stash: y as a2m_gcn_stack, and xs (L - 1, N, J, F).
+int a2m_gcn_stack_fwd(const void* x, void* y, void* xs, const void* params,
+                      const void* adj, int n, int J, int F, int H, int L,
+                      int precise, void* stream) {
+  if (n <= 0) return 0;
+  if (F % 4 != 0 || F > 64) return (int)cudaErrorInvalidValue;
+  const int G = graphs_per_block(J);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xp = (const float*)x;
+  const float* pp = (const float*)params;
+  const float* ap = (const float*)adj;
+  return precise ? launch<true, true>(xp, (float*)y, (float*)xs, pp, ap, n,
+                                      J, F, H, L, G, s)
+                 : launch<false, true>(xp, (float*)y, (float*)xs, pp, ap, n,
+                                       J, F, H, L, G, s);
 }
 
 const char* a2m_error_string(int code) {

@@ -1,4 +1,5 @@
-"""Gesture generator (``a2m/models/generator.py:38-169``), eval mode.
+"""Gesture generator (``a2m/models/generator.py:38-169``), eval and train
+mode (``model.train()`` turns on dropout and the BatchNorm updates).
 
 Audio (B, T, 128) -> AudioEncoder -> UNet1D -> body decoder (J = 10) and
 hand decoder (J = 42), each around a 5-layer GCN stack -> pose (B, T, 104)
@@ -37,7 +38,8 @@ class _PartDecoder(nn.Module):
         self.pre_attn = SelfAttention(c)
         self.proj_in = nn.Linear(c, j * f)
         self.gcn = GCNStack(f, adjacency, num_layers=5, heads=heads,
-                            fused=fused_gcn, precise=fused_precise)
+                            dropout=p, fused=fused_gcn,
+                            precise=fused_precise)
         self.proj_out = nn.Linear(j * f, c)
         self.norm = nn.LayerNorm(c, eps=1e-6)
         self.post_res = ResBlock(c, p=p)
@@ -71,6 +73,10 @@ class Generator(nn.Module):
         cfg = self.config = config
         self.audio_encoder = AudioEncoder(base_channels=cfg.in_channels // 4,
                                           p=cfg.dropout)
+        if cfg.num_style_speakers > 0:
+            # additive speaker-style bias over the encoder features
+            self.style_emb = nn.Embedding(cfg.num_style_speakers,
+                                          cfg.in_channels)
         self.unet = UNet1D(cfg.in_channels, cfg.out_channels, p=cfg.dropout)
         body_adj = constants.adjacency_from_edges(constants.body_edges(),
                                                   cfg.num_body_joints)
@@ -88,9 +94,15 @@ class Generator(nn.Module):
             hand_adj, cfg.out_feats - cfg.body_feats, attention_first=False,
             extra_post_channel_attn=True, **common)
 
-    def forward(self, audio: torch.Tensor,
-                time_steps: int | None = None) -> torch.Tensor:
-        feats = self.unet(self.audio_encoder(audio, time_steps))
+    def forward(self, audio: torch.Tensor, time_steps: int | None = None,
+                speaker_ids: torch.Tensor | None = None) -> torch.Tensor:
+        feats = self.audio_encoder(audio, time_steps)
+        if self.config.num_style_speakers > 0:
+            if speaker_ids is None:
+                speaker_ids = torch.zeros(audio.shape[0], dtype=torch.long,
+                                          device=audio.device)
+            feats = feats + self.style_emb(speaker_ids.long())[:, None, :]
+        feats = self.unet(feats)
         body = self.body_decoder(feats)
         hand = self.hand_decoder(feats)
         nb, nh = self.config.num_body_joints, self.config.num_hand_joints

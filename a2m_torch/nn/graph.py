@@ -66,16 +66,21 @@ class DenseGATConv(nn.Module):
 
 class GCNStack(nn.Module):
     """Alternating GAT/GraphConv layers, each followed by LayerNorm (flax's
-    eps 1e-6), LeakyReLU 0.2 and the residual (``a2m/nn/graph.py:
-    118-167``).  ``fused`` runs all layers through the fused stack kernel,
-    with bf16 matmul operands unless ``precise``."""
+    eps 1e-6), LeakyReLU 0.2 and the residual, then one dropout
+    (``a2m/nn/graph.py:118-167``).  ``fused`` runs all layers through the
+    fused stack kernels, with bf16 matmul operands unless ``precise``: the
+    forward kernel when nothing needs a gradient, and otherwise one
+    ``torch.autograd.Function`` around the stash-forward and backward
+    kernels (``gcn_kernel.gcn_stack_trainable``).  A CUDA tensor on the
+    fused path never reaches the eager layers."""
 
     def __init__(self, features: int, adjacency: np.ndarray,
-                 num_layers: int = 5, heads: int = 4, fused: bool = False,
-                 precise: bool = False):
+                 num_layers: int = 5, heads: int = 4, dropout: float = 0.0,
+                 fused: bool = False, precise: bool = False):
         super().__init__()
         self.num_layers, self.heads = num_layers, heads
         self.fused, self.precise = fused, precise
+        self.dropout = nn.Dropout(dropout)
         self.register_buffer('adjacency',
                              torch.as_tensor(adjacency, dtype=torch.float32),
                              persistent=False)
@@ -97,25 +102,43 @@ class GCNStack(nn.Module):
                 self._packed = (key, self._pack())
         return self._packed[1]
 
-    def _pack(self) -> torch.Tensor:
-        layers = []
+    def pack_sources(self) -> list[tuple[torch.Tensor, bool]]:
+        """The kernel buffer's entries in order: (tensor, packed as its
+        transpose).  ``nn.Linear`` keeps (out, in), the kernel (in, out)."""
+        out = []
         for i in range(1, self.num_layers + 1):
             g, n = getattr(self, f'gcn{i}'), getattr(self, f'norm{i}')
             if i % 2:
-                layers.append((g.lin.weight.t(), g.att_src, g.att_dst,
-                               g.bias, n.weight, n.bias))
+                out += [(g.lin.weight, True), (g.att_src, False),
+                        (g.att_dst, False), (g.bias, False)]
             else:
-                layers.append((g.lin_rel.weight.t(), g.lin_root.weight.t(),
-                               g.lin_root.bias, n.weight, n.bias))
-        return gcn_kernel.pack_params(layers)
+                out += [(g.lin_rel.weight, True), (g.lin_root.weight, True),
+                        (g.lin_root.bias, False)]
+            out += [(n.weight, False), (n.bias, False)]
+        return out
+
+    def _pack(self) -> torch.Tensor:
+        return gcn_kernel.pack_params(
+            [[t.t() if transposed else t
+              for t, transposed in self.pack_sources()]])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
-            return gcn_kernel.gcn_stack(x.float(), self.packed_params(),
-                                        self.adjacency, self.heads,
-                                        self.num_layers, self.precise)
+            sources = self.pack_sources()
+            if torch.is_grad_enabled() and (
+                    x.requires_grad
+                    or any(t.requires_grad for t, _ in sources)):
+                x = gcn_kernel.gcn_stack_trainable(
+                    x.float(), self.packed_params(), self.adjacency,
+                    self.heads, self.num_layers, self.precise,
+                    [t for t, _ in sources], [tr for _, tr in sources])
+            else:
+                x = gcn_kernel.gcn_stack(x.float(), self.packed_params(),
+                                         self.adjacency, self.heads,
+                                         self.num_layers, self.precise)
+            return self.dropout(x)
         for i in range(1, self.num_layers + 1):
             residual = x
             x = getattr(self, f'norm{i}')(getattr(self, f'gcn{i}')(x))
             x = F.leaky_relu(x, 0.2) + residual
-        return x
+        return self.dropout(x)

@@ -1,20 +1,48 @@
-"""Eval-mode BatchNorm with a2m's variable layout.
+"""Mask-aware BatchNorm with a2m's variable layout.
 
-Counterpart of ``a2m/nn/masking.py::MaskedBatchNorm`` (``:84-106``) in eval
-mode: normalise over the last (channel) axis with the running statistics,
-eps 1e-5, in f32.  Train mode (mask-weighted biased variance, momentum 0.9)
-belongs to the training slice.
+Counterpart of ``a2m/nn/masking.py`` (``:38-106``): normalise over the last
+(channel) axis, eps 1e-5, in f32 at least.  Eval mode uses the running statistics.
+Train mode uses the batch moments, weighted by the per-sample (B,) mask of
+the enclosing :func:`batch_mask` context so that wrap-padded rows of a ragged
+final batch are inert, and moves the running statistics with flax's
+momentum 0.9 towards the batch mean and the **biased** batch variance
+(``torch.nn.BatchNorm`` would take the unbiased one).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 from torch import nn
 
+#: flax's BatchNorm momentum as a2m sets it: the share of the old statistic
+MOMENTUM = 0.9
+
+_mask_var: contextvars.ContextVar = contextvars.ContextVar(
+    'a2m_torch_batch_mask', default=None)
+
+
+@contextlib.contextmanager
+def batch_mask(mask):
+    """Make ``mask`` ((B,) 1/0 weights or None) visible to every
+    :class:`MaskedBatchNorm` that runs in train mode within the context."""
+    token = _mask_var.set(mask)
+    try:
+        yield
+    finally:
+        _mask_var.reset(token)
+
+
+def current_batch_mask():
+    return _mask_var.get()
+
 
 class MaskedBatchNorm(nn.Module):
-    """``y = (x - running_mean) * rsqrt(running_var + eps) * weight + bias``
-    over the last axis of a channel-last tensor."""
+    """``y = (x - mean) * rsqrt(var + eps) * weight + bias`` over the last
+    axis of a channel-last tensor; ``mean``/``var`` are the running
+    statistics in eval mode and the (masked) batch moments in train mode."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -25,9 +53,25 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                'MaskedBatchNorm: only eval mode is ported')
-        x = x.float()
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        # half types compute in f32; f64 (a test's reference) stays f64
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mask = current_batch_mask()
+            if mask is None:
+                mean = x.mean(axes)
+                var = ((x - mean) ** 2).mean(axes)
+            else:
+                w = mask.to(x.dtype).reshape((x.shape[0],)
+                                             + (1,) * (x.dim() - 1))
+                denom = w.sum() * (x[0].numel() // x.shape[-1])
+                mean = (x * w).sum(axes) / denom
+                var = (((x - mean) ** 2) * w).sum(axes) / denom
+            with torch.no_grad():
+                m = MOMENTUM
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias

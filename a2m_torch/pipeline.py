@@ -1,10 +1,14 @@
-"""The audio->pose serving path of the port.
+"""The audio->pose serving path of the port, and its trainer.
 
 :func:`build_pipeline` is the twin of ``bench.py:31-73``: raw waveform at
 45.6 kHz -> pose-rate log-mel (``spec_log_mel_512`` strided by
 ``round(89 / 15) = 6``, hop 3072, 64 frames) -> ``Generator`` (eval) ->
 pose (B, 64, 104).  :func:`entry` is the twin of
 ``__graft_entry__.py:18-31``.
+
+:func:`build_trainer` is the training entry point: the flagship generator
+with its GCN stacks on the fused kernels and a default discriminator under
+:class:`a2m_torch.train.loop.Trainer`.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; they raise when CUDA is absent.  Building a pipeline on CUDA turns
@@ -21,8 +25,10 @@ import numpy as np
 import torch
 
 from a2m_torch.audio import frontend
-from a2m_torch.config import GeneratorConfig
+from a2m_torch.config import (DiscriminatorConfig, GeneratorConfig,
+                              TrainConfig)
 from a2m_torch.constants import AUDIO_FS_MAP, FRAMES_PER_WINDOW
+from a2m_torch.models.discriminator import Discriminator
 from a2m_torch.models.generator import Generator
 from a2m_torch.weights import from_jax_variables, load_generator_npz
 
@@ -92,6 +98,41 @@ def build_pipeline(npz=None, batch: int = 128, fused_gcn: bool = True,
         audio_to_pose(torch.zeros(batch, int(SR * CLIP_SECONDS),
                                   device=dev))
     return audio_to_pose
+
+
+def build_trainer(npz=None, batch: int = 128, device='cuda', seed: int = 0,
+                  config: GeneratorConfig = GeneratorConfig(fused_gcn=True),
+                  log=print):
+    """A :class:`~a2m_torch.train.loop.Trainer` around the flagship
+    generator (weights from a packed ``.npz``, default the committed
+    flagship; GCN stacks on the fused kernels: the stash-forward and
+    backward kernels in ``g_step``, the forward kernel in ``d_step`` and
+    ``eval_step``), a default discriminator initialised from ``seed``, and
+    the ``.npz``'s pose statistics, under the default ``TrainConfig``.  The
+    caller sets ``trainer.train_batches`` and ``trainer.dev_batches``.
+    ``batch`` sizes one warm-up ``eval_step`` on zeros after the CUDA
+    kernels are built; 0 skips it."""
+    from a2m_torch.train.loop import Trainer
+    dev = resolve_device(device)
+    g_model = Generator(config)
+    flat, stats = load_generator_npz(FLAGSHIP_NPZ if npz is None else npz)
+    g_model.load_state_dict(from_jax_variables(flat, g_model))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        d_model = Discriminator(DiscriminatorConfig())
+    trainer = Trainer(g_model.to(dev), d_model.to(dev), TrainConfig(),
+                      mean=stats.get('mean'), std=stats.get('std'),
+                      seed=seed, log=log)
+    if dev.type == 'cuda':
+        from a2m_torch import _build
+        _build.build(('gcn_stack', 'gcn_stack_bwd'))
+    if batch:
+        trainer.eval_step(
+            trainer.g_state, trainer.d_state,
+            torch.zeros(batch, FRAMES_PER_WINDOW, 128, device=dev),
+            torch.zeros(batch, FRAMES_PER_WINDOW, 104, device=dev),
+            trainer.mean, trainer.std, torch.ones(batch, device=dev))
+    return trainer
 
 
 def entry(device='cuda'):

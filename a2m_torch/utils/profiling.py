@@ -1,15 +1,19 @@
-"""Device-time breakdown of the audio->pose path with ``torch.profiler``.
+"""Device-time breakdown of the port's paths with ``torch.profiler``.
 
 Counterpart of ``a2m/utils/profiling.py``'s device trace.  Run on the card,
 from the repository root::
 
-    python -m a2m_torch.utils.profiling [--batch 128] [--iters 5]
+    python -m a2m_torch.utils.profiling [--path serve] [--batch 128]
+                                        [--iters 5]
 
-It builds the flagship pipeline, profiles ``iters`` calls after a warm-up,
-and prints one JSON object: the wall time per call (host clock around a
-synchronised window), the summed kernel time per call, the device's idle
-share of the window, the kernel time per category (the port's two
-kernels, convolutions, GEMMs, everything else) and the largest kernels.
+``--path serve`` builds the flagship audio->pose pipeline; ``g_step``,
+``d_step`` and ``eval_step`` build the flagship trainer
+(``pipeline.build_trainer``) and profile that step on one seeded batch.  It
+profiles ``iters`` calls after a warm-up and prints one JSON object: the
+wall time per call (host clock around a synchronised window), the summed
+kernel time per call, the device's idle share of the window, the kernel
+time per category (the port's kernels, convolutions, GEMMs, everything
+else) and the largest kernels.
 """
 
 from __future__ import annotations
@@ -23,10 +27,14 @@ import torch
 
 #: kernel-name substrings -> category, first match wins
 CATEGORIES = (
+    ('gcn_stack_bwd', ('gcn_stack_bwd_kernel', 'transpose_weights_kernel',
+                       'reduce_partials_kernel')),
+    ('gcn_stack_fwd', ('gcn_stack_kernel<false, true>',
+                       'gcn_stack_kernel<true, true>')),
     ('gcn_stack', ('gcn_stack_kernel',)),
     ('log_mel', ('log_mel_kernel', 'log_mel_finish')),
     ('convolution', ('conv', 'cudnn', 'implicit_gemm', 'fprop', 'dgrad',
-                     'winograd', 'fft')),
+                     'wgrad', 'winograd', 'fft')),
     ('gemm', ('gemm', 'cutlass', 'cublas')),
 )
 
@@ -34,7 +42,7 @@ CATEGORIES = (
 def category(name: str) -> str:
     low = name.lower()
     for cat, keys in CATEGORIES:
-        if any(k in low for k in keys):
+        if any(k.lower() in low for k in keys):
             return cat
     return 'other'
 
@@ -67,23 +75,49 @@ def kernel_breakdown(fn, iters: int) -> dict:
                      for n, ms, c in per_call[:15]])
 
 
+def step_fn(path: str, batch: int):
+    """The profiled callable of ``path``: one serving call, or one train or
+    eval step of the flagship trainer on a seeded batch."""
+    gen = torch.Generator().manual_seed(0)
+    if path == 'serve':
+        from a2m_torch.pipeline import CLIP_SECONDS, SR, build_pipeline
+        audio_to_pose = build_pipeline(batch=batch)
+        wave = (torch.randn(batch, int(SR * CLIP_SECONDS), generator=gen)
+                * 0.1).cuda()
+        return lambda: audio_to_pose(wave)
+    from a2m_torch.pipeline import build_trainer
+    tr = build_trainer(batch=batch, log=lambda line: None)
+    audio = torch.randn(batch, 64, 128, generator=gen).cuda()
+    pose = (torch.randn(batch, 64, 104, generator=gen) * 10 + 300).cuda()
+    mask = torch.ones(batch, device='cuda')
+    real = tr.controller.label_params(0, is_real=True)
+    fake = tr.controller.label_params(0, is_real=False)
+    common = (tr.g_state, tr.d_state, audio, pose, tr.mean, tr.std)
+    if path == 'g_step':
+        return lambda: tr.g_step(*common, real.smooth_real, real.noise_std,
+                                 tr.key, mask=mask)
+    if path == 'd_step':
+        return lambda: tr.d_step(*common, real.smooth_real, fake.smooth_fake,
+                                 real.noise_std, tr.key, mask=mask)
+    return lambda: tr.eval_step(*common, mask)
+
+
 def main() -> None:
-    from a2m_torch.pipeline import CLIP_SECONDS, SR, build_pipeline
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--path', default='serve',
+                    choices=('serve', 'g_step', 'd_step', 'eval_step'))
     ap.add_argument('--batch', type=int, default=128)
     ap.add_argument('--iters', type=int, default=5)
     args = ap.parse_args()
-    audio_to_pose = build_pipeline(batch=args.batch)
-    gen = torch.Generator().manual_seed(0)
-    wave = (torch.randn(args.batch, int(SR * CLIP_SECONDS), generator=gen)
-            * 0.1).cuda()
+    fn = step_fn(args.path, args.batch)
     for _ in range(3):
-        audio_to_pose(wave)
-    out = kernel_breakdown(lambda: audio_to_pose(wave), args.iters)
+        fn()
+    out = kernel_breakdown(fn, args.iters)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader', '--id=0'],
                          capture_output=True, text=True).stdout.strip()
-    print(json.dumps(dict(device=smi, batch=args.batch, **out), indent=1))
+    print(json.dumps(dict(device=smi, path=args.path, batch=args.batch,
+                          **out), indent=1))
 
 
 if __name__ == '__main__':

@@ -1,4 +1,4 @@
-"""Carrying a2m (flax) generator weights into the port.
+"""Carrying a2m (flax) weights into the port and back.
 
 Port attribute paths are a2m's flax scopes, so a flax leaf
 ``params/<scope>/<leaf>`` or ``batch_stats/<scope>/<leaf>`` maps to the port
@@ -10,7 +10,13 @@ the entry:
 * ``nn.Conv2d``: flax (kh, kw, in, out) -> (out, in, kh, kw);
 * ``nn.Conv1d``: (k, in, out) -> (out, in, k);
 * ``ConvTranspose1D``: (k, in, out) -> (in, out, k), no flip;
-* ``nn.Linear`` (flax ``Dense``): (in, out) -> (out, in).
+* ``nn.Linear`` (flax ``Dense``): (in, out) -> (out, in);
+* ``nn.Embedding`` (flax ``Embed``): the ``embedding`` leaf is the port's
+  ``weight``, same layout.
+
+A grouped ``nn.Conv1d`` follows the ``Conv1d`` rule: flax keeps
+(k, in / groups, out), PyTorch (out, in / groups, k).
+:func:`to_jax_variables` is the inverse of :func:`from_jax_variables`.
 """
 
 from __future__ import annotations
@@ -22,9 +28,10 @@ import torch
 from torch import nn
 
 from a2m_torch.nn.layers import ConvTranspose1D
+from a2m_torch.nn.masking import MaskedBatchNorm
 
 _LEAF_RENAME = {'kernel': 'weight', 'scale': 'weight', 'mean': 'running_mean',
-                'var': 'running_var'}
+                'var': 'running_var', 'embedding': 'weight'}
 
 
 def load_generator_npz(path) -> tuple[dict[str, np.ndarray],
@@ -82,4 +89,39 @@ def from_jax_variables(flat: dict, model: nn.Module) -> dict:
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f'port entries left unset: {missing}')
+    return out
+
+
+def to_jax_variables(model: nn.Module) -> dict[str, np.ndarray]:
+    """A port module's state -> flat a2m variables ``{'params/a/b/kernel':
+    array, 'batch_stats/a/b/mean': array}`` (f32 numpy), the inverse of
+    :func:`from_jax_variables`."""
+    out = {}
+    for name, tensor in model.state_dict().items():
+        *scope, leaf = name.split('.')
+        module = model.get_submodule('.'.join(scope))
+        value = tensor.detach().cpu().numpy().astype(np.float32)
+        collection = 'params'
+        if isinstance(module, MaskedBatchNorm):
+            if leaf in ('running_mean', 'running_var'):
+                collection, leaf = 'batch_stats', leaf[len('running_'):]
+            elif leaf == 'weight':
+                leaf = 'scale'
+        elif isinstance(module, nn.LayerNorm):
+            leaf = 'scale' if leaf == 'weight' else leaf
+        elif isinstance(module, nn.Embedding):
+            leaf = 'embedding'
+        elif leaf == 'weight':
+            leaf = 'kernel'
+            if isinstance(module, (nn.Conv1d, nn.Conv2d)):
+                value = value.transpose(*range(2, value.ndim), 1, 0)
+            elif isinstance(module, ConvTranspose1D):
+                value = value.transpose(2, 0, 1)
+            elif isinstance(module, nn.Linear):
+                value = value.T
+            else:
+                raise ValueError(f'no layout rule for the weight of '
+                                 f'{type(module).__name__} ({name})')
+        out['/'.join([collection, *scope, leaf])] = np.ascontiguousarray(
+            value)
     return out

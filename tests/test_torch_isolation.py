@@ -16,8 +16,12 @@ for info in pkgutil.walk_packages(a2m_torch.__path__, 'a2m_torch.'):
     importlib.import_module(info.name)
 loaded = sorted(m for m in sys.modules if m == 'a2m' or m.startswith('a2m.'))
 assert not loaded, loaded
-from a2m_torch.pipeline import build_pipeline, entry
-for call in (build_pipeline, entry):
+from a2m_torch.pipeline import build_pipeline, build_trainer, entry
+for name in ('a2m_torch.models.discriminator', 'a2m_torch.models.losses',
+             'a2m_torch.eval.metrics', 'a2m_torch.train.controller',
+             'a2m_torch.train.train_step', 'a2m_torch.train.loop'):
+    assert name in sys.modules, name
+for call in (build_pipeline, build_trainer, entry):
     try:
         call()
     except RuntimeError as e:

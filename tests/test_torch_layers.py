@@ -103,3 +103,53 @@ def test_conv_transpose_weight_is_unflipped():
         flipped = port(torch.from_numpy(x)).numpy()
     assert max_rel(got, ref) < TOL
     assert max_rel(flipped, ref) > 1e-2
+
+
+@pytest.mark.parametrize('k,stride,t', [(3, 1, 16), (4, 2, 16), (4, 2, 15),
+                                        (3, 1, 5)])
+def test_conv1d_as_matmul_equals_conv1d(k, stride, t):
+    """The matrix-product form ConvNormRelu takes under autograd is the same
+    convolution, forward and backward (f32 summation order apart)."""
+    rng = np.random.default_rng(k * 10 + stride)
+    pad = tl.torch_pad(k, stride)[0]
+    x = torch.from_numpy(rng.standard_normal((3, t, 6)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 6, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(5).astype(np.float32))
+    grads = []
+    for form in ('matmul', 'conv'):
+        xs, ws, bs = (v.clone().requires_grad_() for v in (x, w, b))
+        if form == 'matmul':
+            y = tl.conv1d_as_matmul(xs, ws, bs, stride, pad)
+        else:
+            y = torch.nn.functional.conv1d(xs.transpose(1, 2), ws, bs, stride,
+                                           pad).transpose(1, 2)
+        (y * y).sum().backward()
+        grads.append((y.detach(), xs.grad, ws.grad, bs.grad))
+    for got, ref in zip(*grads):
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_conv_norm_relu_takes_the_matmul_form_only_under_autograd():
+    block = tl.ConvNormRelu(6, 5, type='1d', leaky=True).eval()
+    x = torch.randn(2, 16, 6)
+    with torch.no_grad():
+        ref = block(x)
+    got = block(x)                       # parameters require a gradient
+    assert got.requires_grad and not ref.requires_grad
+    np.testing.assert_allclose(got.detach().numpy(), ref.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize('in_len,out_len', [(64, 4), (64, 7), (5, 8),
+                                            (6, 6)])
+def test_adaptive_pool_matrix_matches_a2m_and_torch(in_len, out_len):
+    w = tl.adaptive_pool_matrix(in_len, out_len)
+    np.testing.assert_allclose(
+        w.numpy(), np.asarray(jl.adaptive_pool_matrix(in_len, out_len)),
+        atol=1e-7)
+    x = torch.randn(2, 3, in_len)
+    np.testing.assert_allclose(
+        torch.einsum('os,bcs->bco', w, x).numpy(),
+        torch.nn.functional.adaptive_avg_pool1d(x, out_len).numpy(),
+        atol=1e-6)

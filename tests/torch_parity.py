@@ -54,3 +54,33 @@ def port_module(module, flat: dict):
 def max_rel(got: np.ndarray, ref: np.ndarray) -> float:
     """max |got - ref| relative to max |ref|."""
     return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def port_grads_as_jax(model) -> dict:
+    """The ``.grad`` of every parameter of a port module under a2m's names
+    and layouts (``'params/a/b/kernel'``), through ``to_jax_variables`` on a
+    copy whose parameters hold the gradients."""
+    import copy
+
+    import torch
+    from a2m_torch.weights import to_jax_variables
+    twin = copy.deepcopy(model)
+    with torch.no_grad():
+        for p, q in zip(twin.parameters(), model.parameters()):
+            p.copy_(torch.zeros_like(q) if q.grad is None else q.grad)
+    return {k: v for k, v in to_jax_variables(twin).items()
+            if k.startswith('params/')}
+
+
+def assert_grads_close(got: dict, ref: dict, tol: float = 1e-3,
+                       floor_share: float = 1e-3) -> None:
+    """Every tensor within ``tol`` of its own max|ref|, and of no less than
+    ``floor_share`` of the largest max|ref| of any tensor: a bias that feeds
+    a train-mode BatchNorm has a zero gradient up to rounding, so its own
+    scale is noise."""
+    assert set(got) == set(ref), set(got) ^ set(ref)
+    floor = floor_share * max(np.abs(v).max() for v in ref.values())
+    for key, r in ref.items():
+        scale = max(np.abs(r).max(), floor)
+        np.testing.assert_allclose(got[key], np.asarray(r), rtol=0,
+                                   atol=tol * scale, err_msg=key)
