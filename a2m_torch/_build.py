@@ -37,9 +37,14 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _P],
         'a2m_gcn_stack_bwd_blocks': [_I, _I, _I, _I, _I, _I],
     },
+    'gcn_stack_edge': {
+        'a2m_gcn_stack_edge': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P],
+        'a2m_gcn_stack_edge_tile': [_I, _I, _I, _I],
+    },
     'log_mel': {
         'a2m_log_mel': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _F, _P],
+                        _I, _I, _I, _I, _F, _P],
         'a2m_log_mel_groups': [_I, _I, _I, _I],
     },
 }

@@ -4,9 +4,10 @@ controller and the train steps.
 Own copies of the dataclasses of ``a2m/config.py`` (``GeneratorConfig``
 ``:73-107``, ``DiscriminatorConfig`` ``:111-130``, ``ControllerConfig``
 ``:134-166``, and of ``TrainConfig`` ``:170-244`` the fields that the steps
-and the loop read), plus the GCN kernel switches.  The knobs that exist only
-for the TPU (``remat``, ``rng_impl``, ``donate_buffers``, ``log_mfu``, the
-tile and edge-form switches) have no counterpart here.
+and the loop read), plus the GCN kernel switches (``fused_gcn``,
+``fused_edge``, ``fused_precise``).  The knobs that exist only for the TPU
+(``remat``, ``rng_impl``, ``donate_buffers``, ``log_mfu``, ``fused_tile``:
+each kernel here picks its own tile) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ class GeneratorConfig:
     #: ignored; accepted so that a2m's configs carry over: a2m's rolled
     #: head loop is the same math, and the port has one kernel for both
     fused_rolled: bool = False
+    #: with ``fused_gcn``, route the gradient-free forwards through the
+    #: edge-form kernel (a2m's ``_kernel_edge``: tiles of graphs in
+    #: joint-major order, routing over constant edge lists) instead of the
+    #: dense one; forwards under autograd keep the stash-forward and
+    #: backward kernels.  Without ``fused_gcn`` it changes nothing.
+    fused_edge: bool = False
     #: fused kernel's matmul operands in f32 instead of bf16 (a2m's
     #: ``fused_gcn_stack(precise=True)``)
     fused_precise: bool = False

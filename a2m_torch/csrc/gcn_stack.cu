@@ -252,42 +252,7 @@ gcn_stack_kernel(const float* __restrict__ x, float* __restrict__ y,
     __syncthreads();
 
     // ---- bias, LayerNorm, LeakyReLU, residual: one warp per row ---------
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    float pb[2], ps[2], pl[2];            // this lane's f = lane, lane + 32
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int f = lane + 32 * u;
-      pb[u] = f < F ? __ldg(bias + f) : 0.f;
-      ps[u] = f < F ? __ldg(ln_scale + f) : 0.f;
-      pl[u] = f < F ? __ldg(ln_bias + f) : 0.f;
-    }
-    for (int r = warp; r < R; r += blockDim.x / 32) {
-      float* o = out_s + r * F;
-      float v[2] = {0.f, 0.f};
-      float s = 0.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int f = lane + 32 * u;
-        if (f < F) {
-          v[u] = o[f] + pb[u];
-          s += v[u];
-        }
-      }
-      const float mean = warp_sum(s) / (float)F;
-      float q = 0.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float d = v[u] - mean;
-        if (lane + 32 * u < F) q = fmaf(d, d, q);
-      }
-      const float rs = rsqrtf(warp_sum(q) / (float)F + kLnEps);
-      float* xr = x_s + r * F;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int f = lane + 32 * u;
-        if (f < F) xr[f] = leaky((v[u] - mean) * rs * ps[u] + pl[u]) + xr[f];
-      }
-    }
+    bias_norm_leaky_residual(out_s, x_s, R, F, bias, ln_scale, ln_bias);
     __syncthreads();
   }
 

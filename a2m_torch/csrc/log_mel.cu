@@ -1,10 +1,16 @@
 // Fused log-mel frontend, CUDA C++ for sm_90a.
 //
 // Replaces the Pallas TPU kernel a2m/audio/pallas_mel.py::_kernel (called by
-// pallas_log_mel), fast mode: framing of the centred, reflect-padded
-// waveform -> window-folded DFT (re and im products) -> power re^2 + im^2 ->
-// mel projection accumulated over the bin tiles -> log(max(mel, eps)).
-// Neither the frames nor the (T, K) spectrum go to device memory.
+// pallas_log_mel), fast mode: framing of the waveform (centred and
+// reflect-padded, or as it is) -> window-folded DFT (re and im products) ->
+// power re^2 + im^2, or its square root (magnitude) -> mel projection
+// accumulated over the bin tiles -> log(max(mel, c)) or log(mel + c).
+// Neither the frames nor the (T, K) spectrum go to device memory.  It
+// covers the three frontend families: log_mel_512 (frames of 2048, 1025
+// bins, 128 mels, power, eps log), log_mel_400 (frames of 512, 257 bins, 64
+// mels, magnitude, eps log) and VGGish (frames of 400 whose DFT matrix
+// absorbs the zero-padding to 512, htk mels, offset log).  A stack of
+// frames cut by the client is a signal with hop = frame_len and no pad.
 //
 // Bound on the H100: at the main-path shapes (B = 128, T = 64 frames of
 // n_fft = 2048, K = 1025 bins, 128 mels) the function needs ~2.7 GFLOP by
@@ -28,9 +34,11 @@
 // later work.
 //
 // Layout: y (B, n_samples) f32; dr, di (frame_len, K) f32 window-folded DFT
-// matrices; mel (K, 128) f32; out (B, n_frames, 128) f32; part (groups, B,
-// n_frames, 128) f32 scratch when groups > 1.  Frame t starts at t * hop in
-// the signal padded by `pad` samples of reflection on each side; samples
+// matrices; mel (K, n_mels) f32, n_mels <= 128 (a thread pair owns one of
+// 128 mel columns; those past n_mels idle); out (B, n_frames, n_mels) f32;
+// part (groups, B, n_frames, n_mels) f32 scratch when groups > 1.  Frame t
+// starts at t * hop in the signal padded by `pad` samples of reflection on
+// each side (pad may be 0, hop smaller or larger than frame_len); samples
 // past the padded end read as zero.
 
 #include <cuda_runtime.h>
@@ -61,12 +69,19 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 w) {
   acc[3] = fmaf(a, w.w, acc[3]);
 }
 
+// log(mel + c) for the offset log, log(max(mel, c)) for the eps log
+__device__ __forceinline__ float take_log(float mel, int log_offset,
+                                          float log_const) {
+  return logf(log_offset ? mel + log_const : fmaxf(mel, log_const));
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 log_mel_kernel(const float* __restrict__ y, float* __restrict__ out,
                float* __restrict__ part, const float* __restrict__ dr,
                const float* __restrict__ di, const float* __restrict__ mel,
                int batch, int n_samples, int frame_len, int hop, int pad,
-               int n_frames, int K, int groups, float eps) {
+               int n_frames, int K, int n_mels, int groups, int magnitude,
+               int log_offset, float log_const) {
   __shared__ __align__(16) Shared sh;
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -155,12 +170,17 @@ log_mel_kernel(const float* __restrict__ y, float* __restrict__ out,
       pw.y = re[i][1] * re[i][1] + im[i][1] * im[i][1];
       pw.z = re[i][2] * re[i][2] + im[i][2] * im[i][2];
       pw.w = re[i][3] * re[i][3] + im[i][3] * im[i][3];
+      if (magnitude) {
+        pw.x = sqrtf(pw.x); pw.y = sqrtf(pw.y);
+        pw.z = sqrtf(pw.z); pw.w = sqrtf(pw.w);
+      }
       *reinterpret_cast<float4*>(&sh.p[4 * fg + i][4 * bg]) = pw;
     }
     __syncthreads();
     const int kn = min(kBins, K - b0);
     for (int kk = 0; kk < kn; ++kk) {
-      const float w = __ldg(mel + (size_t)(b0 + kk) * kMels + mcol);
+      const float w = mcol < n_mels
+          ? __ldg(mel + (size_t)(b0 + kk) * n_mels + mcol) : 0.f;
 #pragma unroll
       for (int i = 0; i < kFrames / 2; ++i)
         macc[i] = fmaf(sh.p[mhalf * (kFrames / 2) + i][kk], w, macc[i]);
@@ -171,24 +191,24 @@ log_mel_kernel(const float* __restrict__ y, float* __restrict__ out,
 #pragma unroll
   for (int i = 0; i < kFrames / 2; ++i) {
     const int t = mhalf * (kFrames / 2) + i;
-    if (t >= nf) continue;
-    const size_t o = ((size_t)b * n_frames + t0 + t) * kMels + mcol;
+    if (t >= nf || mcol >= n_mels) continue;
+    const size_t o = ((size_t)b * n_frames + t0 + t) * n_mels + mcol;
     if (groups == 1)
-      out[o] = logf(fmaxf(macc[i], eps));
+      out[o] = take_log(macc[i], log_offset, log_const);
     else
-      part[(size_t)blockIdx.z * batch * n_frames * kMels + o] = macc[i];
+      part[(size_t)blockIdx.z * batch * n_frames * n_mels + o] = macc[i];
   }
 }
 
-// out = log(max(sum over groups of part, eps))
+// out = the log of the sum over groups of part
 __global__ void log_mel_finish(const float* __restrict__ part,
                                float* __restrict__ out, size_t size,
-                               int groups, float eps) {
+                               int groups, int log_offset, float log_const) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < size;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int g = 0; g < groups; ++g) s += part[(size_t)g * size + i];
-    out[i] = logf(fmaxf(s, eps));
+    out[i] = take_log(s, log_offset, log_const);
   }
 }
 
@@ -207,22 +227,25 @@ int a2m_log_mel_groups(int batch, int n_frames, int n_bins, int sms) {
 int a2m_log_mel(const void* y, void* out, void* part, const void* dr,
                 const void* di, const void* mel, int batch, int n_samples,
                 int frame_len, int hop, int pad, int n_frames, int n_bins,
-                int n_mels, int groups, float eps, void* stream) {
+                int n_mels, int groups, int magnitude, int log_offset,
+                float log_const, void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
-  if (n_mels != kMels || frame_len % kChunk != 0 || groups < 1)
+  if (n_mels < 1 || n_mels > kMels || frame_len % kChunk != 0 || groups < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((n_frames + kFrames - 1) / kFrames, batch, groups);
   log_mel_kernel<<<grid, kThreads, 0, s>>>(
       (const float*)y, (float*)out, (float*)part, (const float*)dr,
       (const float*)di, (const float*)mel, batch, n_samples, frame_len, hop,
-      pad, n_frames, n_bins, groups, eps);
+      pad, n_frames, n_bins, n_mels, groups, magnitude, log_offset,
+      log_const);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || groups == 1) return (int)err;
-  const size_t size = (size_t)batch * n_frames * kMels;
+  const size_t size = (size_t)batch * n_frames * n_mels;
   const int blocks = (int)((size + kThreads - 1) / kThreads);
   log_mel_finish<<<blocks, kThreads, 0, s>>>((const float*)part,
-                                              (float*)out, size, groups, eps);
+                                              (float*)out, size, groups,
+                                              log_offset, log_const);
   return (int)cudaGetLastError();
 }
 

@@ -27,7 +27,8 @@ class _PartDecoder(nn.Module):
     def __init__(self, channels: int, num_joints: int, joint_feat_dim: int,
                  adjacency, out_feats: int, p: float, heads: int,
                  attention_first: bool, extra_post_channel_attn: bool,
-                 fused_gcn: bool = False, fused_precise: bool = False):
+                 fused_gcn: bool = False, fused_precise: bool = False,
+                 fused_edge: bool = False):
         super().__init__()
         c, j, f = channels, num_joints, joint_feat_dim
         self.num_joints, self.joint_feat_dim = j, f
@@ -39,7 +40,7 @@ class _PartDecoder(nn.Module):
         self.proj_in = nn.Linear(c, j * f)
         self.gcn = GCNStack(f, adjacency, num_layers=5, heads=heads,
                             dropout=p, fused=fused_gcn,
-                            precise=fused_precise)
+                            precise=fused_precise, fused_edge=fused_edge)
         self.proj_out = nn.Linear(j * f, c)
         self.norm = nn.LayerNorm(c, eps=1e-6)
         self.post_res = ResBlock(c, p=p)
@@ -84,7 +85,8 @@ class Generator(nn.Module):
                                                   cfg.num_hand_joints)
         common = dict(p=cfg.dropout, heads=cfg.gat_heads,
                       fused_gcn=cfg.fused_gcn,
-                      fused_precise=cfg.fused_precise)
+                      fused_precise=cfg.fused_precise,
+                      fused_edge=cfg.fused_edge)
         self.body_decoder = _PartDecoder(
             cfg.out_channels, cfg.num_body_joints, cfg.joint_feat_dim,
             body_adj, cfg.body_feats, attention_first=True,

@@ -1,6 +1,6 @@
 """Fused GCN stack: CUDA kernel wrappers, their plain versions, cost models.
 
-Three kernels replace the Pallas TPU kernels of ``a2m/nn/pallas_gcn.py`` for
+Four kernels replace the Pallas TPU kernels of ``a2m/nn/pallas_gcn.py`` for
 the 5-layer GAT/GraphConv stack with LayerNorm, LeakyReLU and residual on
 (..., J, F) graph features:
 
@@ -12,7 +12,13 @@ the 5-layer GAT/GraphConv stack with LayerNorm, LeakyReLU and residual on
 * :func:`gcn_stack_bwd` (``csrc/gcn_stack_bwd.cu``) replaces ``_bwd_kernel``
   (``:557``, called by ``_bwd_call``): the reverse walk that recomputes each
   layer from its stored input and returns ``dx`` and every parameter
-  gradient.
+  gradient;
+* :func:`gcn_stack_edge` (``csrc/gcn_stack_edge.cu``) replaces
+  ``_kernel_edge`` (``:879``, called by ``_fused_impl_edge``): the
+  gradient-free forward in edge form, a tile of graphs in joint-major
+  order with the routing over the constant edge lists of
+  :func:`edge_matrices`, and a2m's rounding points for that kernel, which
+  are not ``_kernel``'s.
 
 :func:`gcn_stack_trainable` joins them as one ``torch.autograd.Function``,
 the twin of ``_make_trainable`` (``:722-780``).
@@ -21,7 +27,8 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors, and for nothing else.  The plain versions follow the
 Pallas kernels step by step (dense masked attention, where the CUDA kernels
 loop over the graph's edges: the same function), with the same bf16
-rounding of matmul operands when ``precise`` is false.
+rounding of matmul operands when ``precise`` is false.  With ``precise``
+all forward kernels compute one function up to f32 summation order.
 """
 
 from __future__ import annotations
@@ -143,6 +150,112 @@ def gcn_stack_plain(x: torch.Tensor, params: torch.Tensor,
     """Plain PyTorch version of the forward kernel on (N, J, F) f32."""
     return gcn_stack_fwd_plain(x, params, adjacency, heads, num_layers,
                                precise)[0]
+
+
+def edge_matrices(adjacency: np.ndarray) -> tuple:
+    """(S, D, D.T): the constant 0/1 incidence matrices (E, J), (E, J),
+    (J, E) of the E edges of A + I, from A[dst, src] without self-loops
+    (they are added here, as the GAT mask adds them).  Row e of S has its 1
+    at the edge's source, row e of D at its destination; edges are sorted
+    by destination, then source."""
+    j = adjacency.shape[0]
+    mask = np.maximum(np.asarray(adjacency, np.float32),
+                      np.eye(j, dtype=np.float32)) > 0
+    dst, src = np.nonzero(mask)
+    e = len(dst)
+    s_mat = np.zeros((e, j), np.float32)
+    d_mat = np.zeros((e, j), np.float32)
+    s_mat[np.arange(e), src] = 1.0
+    d_mat[np.arange(e), dst] = 1.0
+    return s_mat, d_mat, np.ascontiguousarray(d_mat.T)
+
+
+#: adjacency tensor -> its routing constants on the tensor's device
+_routing: dict = {}
+
+
+def edge_routing(adjacency: torch.Tensor) -> dict:
+    """The edge form's constants of one adjacency tensor, built once (one
+    read of the adjacency from its device) and kept on that device:
+    ``src``/``dst`` (E,) int64, the index lists read off S and D;
+    ``dt_mat`` (J, E), D.T; and the kernel's buffers ``route`` int32 [src,
+    dst, ptr (J + 1), conv_src, conv_ptr (J + 1)] and ``conv_w`` f32, with
+    ``ptr`` the per-destination ranges of the E edges and ``conv_*`` the
+    same for the Ec nonzero entries of A itself (GraphConv's A @ X)."""
+    key = (adjacency.data_ptr(), adjacency._version, adjacency.device)
+    if key not in _routing:
+        adj = adjacency.detach().cpu().numpy()
+        j = adj.shape[0]
+        s_mat, d_mat, dt_mat = edge_matrices(adj)
+        src, dst = s_mat.argmax(1), d_mat.argmax(1)
+        cdst, csrc = np.nonzero(adj)
+
+        def ranges(sorted_dst):
+            return np.searchsorted(sorted_dst, np.arange(j + 1))
+
+        route = np.concatenate([src, dst, ranges(dst), csrc, ranges(cdst)])
+        dev = adjacency.device
+        _routing[key] = dict(
+            src=torch.as_tensor(src, device=dev),
+            dst=torch.as_tensor(dst, device=dev),
+            dt_mat=torch.as_tensor(dt_mat, device=dev),
+            route=torch.as_tensor(route.astype(np.int32), device=dev),
+            conv_w=torch.as_tensor(adj[cdst, csrc].astype(np.float32),
+                                   device=dev),
+            edges=len(src), conv_edges=len(csrc))
+    return _routing[key]
+
+
+def gcn_stack_edge_plain(x: torch.Tensor, params: torch.Tensor,
+                         adjacency: torch.Tensor, heads: int,
+                         num_layers: int = 5, precise: bool = False
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the edge-form kernel on (N, J, F) f32.
+
+    Written after ``_kernel_edge`` step by step in its (J, N, F) layout,
+    with its rounding points: ``XW`` from rounded x and W, kept f32 for
+    ``a_src``/``a_dst``; the softmax statistics ``m`` and ``denom`` densely
+    per destination; per edge ``alpha = exp(logit - m[dst]) / denom[dst]``
+    in f32, never rounded; the gathered rounded ``XW_h[src]`` times alpha in
+    f32, the product rounded again on its way into the sum over each
+    destination's edges (``D.T @ z``); GraphConv as ``A @ x`` once, its
+    sums rounded for ``@ W_rel``."""
+    n, j, f = x.shape
+    routing = edge_routing(adjacency)
+    src, dst, dt_mat = routing['src'], routing['dst'], routing['dt_mat']
+    mask = _edge_mask(adjacency)[:, :, None]
+    x = x.float().permute(1, 0, 2)                      # (J, N, F)
+    for i, layer in enumerate(_unpack(params, f, heads, num_layers)):
+        residual = x
+        if i % 2 == 0:
+            w, att_src, att_dst, bias = layer[:4]
+            xw = (_op(x, precise).reshape(j * n, f) @ _op(w, precise)
+                  ).view(j, n, heads, f)
+            out = torch.zeros_like(x)
+            for h in range(heads):
+                xwh = xw[:, :, h]                       # (J, N, F)
+                a_src = (xwh * att_src[h]).sum(-1)      # (J, N)
+                a_dst = (xwh * att_dst[h]).sum(-1)
+                e = F.leaky_relu(a_dst[:, None] + a_src[None], SLOPE)
+                e = torch.where(mask, e, e.new_tensor(-1e30))  # (Jd, Js, N)
+                m = e.amax(1)
+                denom = torch.where(mask, torch.exp(e - m[:, None]),
+                                    e.new_zeros(())).sum(1)
+                logit = F.leaky_relu(a_src[src] + a_dst[dst], SLOPE)
+                alpha = torch.exp(logit - m[dst]) / denom[dst]   # (E, N)
+                z = _op(xwh, precise)[src] * alpha[:, :, None]
+                out = out + (dt_mat @ _op(z, precise).reshape(len(src), -1)
+                             ).view(j, n, f)
+            x = out / heads + bias
+        else:
+            w_rel, w_root, bias = layer[:3]
+            neigh = (_op(adjacency, precise)
+                     @ _op(x, precise).reshape(j, n * f)).view(j, n, f)
+            x = (_op(neigh, precise) @ _op(w_rel, precise)
+                 + _op(x, precise) @ _op(w_root, precise)) + bias
+        xhat, _ = _ln_stats(x)
+        x = F.leaky_relu(xhat * layer[-2] + layer[-1], SLOPE) + residual
+    return x.permute(1, 0, 2).contiguous()
 
 
 def gcn_stack_bwd_plain(x0: torch.Tensor, xs: torch.Tensor, g: torch.Tensor,
@@ -288,6 +401,52 @@ def gcn_stack(x: torch.Tensor, params: torch.Tensor,
 
 #: kernel launches since the count was last set to 0
 gcn_stack.launches = 0
+
+
+def gcn_stack_edge(x: torch.Tensor, params: torch.Tensor,
+                   adjacency: torch.Tensor, heads: int, num_layers: int = 5,
+                   precise: bool = False) -> torch.Tensor:
+    """The fused stack in edge form on (..., J, F) f32; takes and returns
+    what :func:`gcn_stack` does.  CUDA tensors launch the edge-form kernel
+    (deterministic: the same inputs give bit-equal outputs), CPU tensors
+    run :func:`gcn_stack_edge_plain`."""
+    j, f = x.shape[-2:]
+    _check_stack_args('gcn_stack_edge', x, params, adjacency, heads,
+                      num_layers)
+    xf = x.reshape(-1, j, f)
+    if x.device.type == 'cpu':
+        return gcn_stack_edge_plain(xf, params, adjacency, heads, num_layers,
+                                    precise).reshape(x.shape)
+    from a2m_torch import _build
+    xf = xf.contiguous()
+    if xf.data_ptr() % 16:                  # the kernel loads float4
+        xf = xf.clone()
+    params = params.contiguous()
+    routing = edge_routing(adjacency)
+    out = torch.empty_like(xf)
+    lib = _build.load('gcn_stack_edge')
+    code = lib.a2m_gcn_stack_edge(
+        xf.data_ptr(), out.data_ptr(), params.data_ptr(),
+        routing['route'].data_ptr(), routing['conv_w'].data_ptr(),
+        xf.shape[0], j, f, heads, num_layers, routing['edges'],
+        routing['conv_edges'], int(precise),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, 'gcn_stack_edge')
+    gcn_stack_edge.launches += 1
+    return out.reshape(x.shape)
+
+
+gcn_stack_edge.launches = 0
+
+
+def edge_tile(adjacency: torch.Tensor, f: int) -> int:
+    """Graphs per block the edge-form kernel takes for this skeleton (its
+    own choice from the shared-memory budget; results do not depend on
+    it)."""
+    from a2m_torch import _build
+    routing = edge_routing(adjacency)
+    return _build.load('gcn_stack_edge').a2m_gcn_stack_edge_tile(
+        adjacency.shape[0], f, routing['edges'], routing['conv_edges'])
 
 
 def gcn_stack_fwd(x: torch.Tensor, params: torch.Tensor,
@@ -469,6 +628,19 @@ def stack_bytes(n: int, j: int, f: int, heads: int,
                 num_layers: int = 5) -> int:
     """x read once, y written once, params and adjacency read once."""
     return 4 * (2 * n * j * f + num_params(f, heads, num_layers) + j * j)
+
+
+def stack_edge_bytes(n: int, adjacency, f: int, heads: int,
+                     num_layers: int = 5) -> int:
+    """The edge form: x read once, y written once, params read once, and
+    the routing constants (five index lists and the values of A) in place
+    of the dense adjacency."""
+    adj = np.asarray(adjacency)
+    j = adj.shape[0]
+    edges = int((np.maximum(adj, np.eye(j)) > 0).sum())
+    conv_edges = int((adj != 0).sum())
+    return 4 * (2 * n * j * f + num_params(f, heads, num_layers)
+                + 2 * edges + 2 * conv_edges + 2 * (j + 1))
 
 
 def stack_fwd_bytes(n: int, j: int, f: int, heads: int,

@@ -68,18 +68,22 @@ class GCNStack(nn.Module):
     """Alternating GAT/GraphConv layers, each followed by LayerNorm (flax's
     eps 1e-6), LeakyReLU 0.2 and the residual, then one dropout
     (``a2m/nn/graph.py:118-167``).  ``fused`` runs all layers through the
-    fused stack kernels, with bf16 matmul operands unless ``precise``: the
-    forward kernel when nothing needs a gradient, and otherwise one
-    ``torch.autograd.Function`` around the stash-forward and backward
-    kernels (``gcn_kernel.gcn_stack_trainable``).  A CUDA tensor on the
-    fused path never reaches the eager layers."""
+    fused stack kernels, with bf16 matmul operands unless ``precise``: a
+    forward kernel when nothing needs a gradient (the edge-form one with
+    ``fused_edge``, a2m's ``edge_form``, else the dense one), and otherwise
+    one ``torch.autograd.Function`` around the stash-forward and backward
+    kernels (``gcn_kernel.gcn_stack_trainable``), whatever ``fused_edge``
+    says.  ``fused_edge`` without ``fused`` changes nothing.  A CUDA tensor
+    on the fused path never reaches the eager layers."""
 
     def __init__(self, features: int, adjacency: np.ndarray,
                  num_layers: int = 5, heads: int = 4, dropout: float = 0.0,
-                 fused: bool = False, precise: bool = False):
+                 fused: bool = False, precise: bool = False,
+                 fused_edge: bool = False):
         super().__init__()
         self.num_layers, self.heads = num_layers, heads
         self.fused, self.precise = fused, precise
+        self.fused_edge = fused_edge
         self.dropout = nn.Dropout(dropout)
         self.register_buffer('adjacency',
                              torch.as_tensor(adjacency, dtype=torch.float32),
@@ -133,9 +137,10 @@ class GCNStack(nn.Module):
                     self.heads, self.num_layers, self.precise,
                     [t for t, _ in sources], [tr for _, tr in sources])
             else:
-                x = gcn_kernel.gcn_stack(x.float(), self.packed_params(),
-                                         self.adjacency, self.heads,
-                                         self.num_layers, self.precise)
+                forward = (gcn_kernel.gcn_stack_edge if self.fused_edge
+                           else gcn_kernel.gcn_stack)
+                x = forward(x.float(), self.packed_params(), self.adjacency,
+                            self.heads, self.num_layers, self.precise)
             return self.dropout(x)
         for i in range(1, self.num_layers + 1):
             residual = x

@@ -1,10 +1,15 @@
-"""The audio->pose serving path of the port, and its trainer.
+"""The audio->pose paths of the port, its streaming server and its trainer.
 
 :func:`build_pipeline` is the twin of ``bench.py:31-73``: raw waveform at
 45.6 kHz -> pose-rate log-mel (``spec_log_mel_512`` strided by
 ``round(89 / 15) = 6``, hop 3072, 64 frames) -> ``Generator`` (eval) ->
 pose (B, 64, 104).  :func:`entry` is the twin of
 ``__graft_entry__.py:18-31``.
+
+:func:`build_server` is the serving entry point: the flagship generator
+with both GCN stacks on the edge-form kernel, behind
+:func:`a2m_torch.eval.streaming.stream_from_waveforms` (any number of
+streams of any length, f32 / int16 / mu-law / client-framed wires).
 
 :func:`build_trainer` is the training entry point: the flagship generator
 with its GCN stacks on the fused kernels and a default discriminator under
@@ -98,6 +103,35 @@ def build_pipeline(npz=None, batch: int = 128, fused_gcn: bool = True,
         audio_to_pose(torch.zeros(batch, int(SR * CLIP_SECONDS),
                                   device=dev))
     return audio_to_pose
+
+
+def build_server(npz=None, device='cuda', fused_edge: bool = True,
+                 fused_precise: bool = False):
+    """``serve(waveforms, sr=SR, **kw) -> list of (T_s, 104) float32
+    poses``: :func:`a2m_torch.eval.streaming.stream_from_waveforms` around
+    the flagship generator (weights from a packed ``.npz``, default the
+    committed flagship) with its GCN stacks on the fused kernels:
+    ``fused_edge`` takes the edge-form kernel, else the dense one; bf16
+    operands unless ``fused_precise``.  ``kw`` are the streaming options
+    (``method``, ``hop``, ``batch_size``, ``fused``, ``encoding``,
+    ``pipeline_groups``, ``framed_n_samples``).  On CUDA the kernels are
+    built here, before the first request; ``serve.generator`` is the
+    model."""
+    from a2m_torch.eval import streaming
+    dev = resolve_device(device)
+    config = GeneratorConfig(fused_gcn=True, fused_edge=fused_edge,
+                             fused_precise=fused_precise)
+    generator = load_generator(npz, config, dev)
+    if dev.type == 'cuda':
+        from a2m_torch import _build
+        _build.build(('log_mel',
+                      'gcn_stack_edge' if fused_edge else 'gcn_stack'))
+
+    def serve(waveforms, sr: int = SR, **kw):
+        return streaming.stream_from_waveforms(generator, waveforms, sr, **kw)
+
+    serve.generator = generator
+    return serve
 
 
 def build_trainer(npz=None, batch: int = 128, device='cuda', seed: int = 0,

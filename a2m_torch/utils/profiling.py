@@ -6,9 +6,13 @@ from the repository root::
     python -m a2m_torch.utils.profiling [--path serve] [--batch 128]
                                         [--iters 5]
 
-``--path serve`` builds the flagship audio->pose pipeline; ``g_step``,
-``d_step`` and ``eval_step`` build the flagship trainer
-(``pipeline.build_trainer``) and profile that step on one seeded batch.  It
+``--path serve`` builds the flagship audio->pose pipeline; ``stream``
+builds the streaming server (``pipeline.build_server``) and profiles one
+fused call of ``--batch`` streams (8 when left at its default) of 60 s at
+45.6 kHz, uploaded from host memory, or already on the card with
+``--on-card``; ``g_step``, ``d_step`` and ``eval_step`` build the flagship
+trainer (``pipeline.build_trainer``) and profile that step on one seeded
+batch.  It
 profiles ``iters`` calls after a warm-up and prints one JSON object: the
 wall time per call (host clock around a synchronised window), the summed
 kernel time per call, the device's idle share of the window, the kernel
@@ -31,11 +35,13 @@ CATEGORIES = (
                        'reduce_partials_kernel')),
     ('gcn_stack_fwd', ('gcn_stack_kernel<false, true>',
                        'gcn_stack_kernel<true, true>')),
+    ('gcn_stack_edge', ('gcn_stack_edge_kernel',)),
     ('gcn_stack', ('gcn_stack_kernel',)),
     ('log_mel', ('log_mel_kernel', 'log_mel_finish')),
     ('convolution', ('conv', 'cudnn', 'implicit_gemm', 'fprop', 'dgrad',
                      'wgrad', 'winograd', 'fft')),
     ('gemm', ('gemm', 'cutlass', 'cublas')),
+    ('copy', ('memcpy',)),
 )
 
 
@@ -75,10 +81,19 @@ def kernel_breakdown(fn, iters: int) -> dict:
                      for n, ms, c in per_call[:15]])
 
 
-def step_fn(path: str, batch: int):
-    """The profiled callable of ``path``: one serving call, or one train or
-    eval step of the flagship trainer on a seeded batch."""
+def step_fn(path: str, batch: int, on_card: bool = False):
+    """The profiled callable of ``path``: one serving call, one fused
+    streaming call, or one train or eval step of the flagship trainer on a
+    seeded batch."""
     gen = torch.Generator().manual_seed(0)
+    if path == 'stream':
+        from a2m_torch.pipeline import SR, build_server
+        serve = build_server()
+        waves = [(torch.randn(SR * 60, generator=gen) * 0.1).numpy()
+                 for _ in range(batch)]
+        if on_card:
+            waves = [torch.from_numpy(w).cuda() for w in waves]
+        return lambda: serve(waves)
     if path == 'serve':
         from a2m_torch.pipeline import CLIP_SECONDS, SR, build_pipeline
         audio_to_pose = build_pipeline(batch=batch)
@@ -105,11 +120,15 @@ def step_fn(path: str, batch: int):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--path', default='serve',
-                    choices=('serve', 'g_step', 'd_step', 'eval_step'))
-    ap.add_argument('--batch', type=int, default=128)
+                    choices=('serve', 'stream', 'g_step', 'd_step',
+                             'eval_step'))
+    ap.add_argument('--batch', type=int, default=None)
     ap.add_argument('--iters', type=int, default=5)
+    ap.add_argument('--on-card', action='store_true')
     args = ap.parse_args()
-    fn = step_fn(args.path, args.batch)
+    if args.batch is None:
+        args.batch = 8 if args.path == 'stream' else 128
+    fn = step_fn(args.path, args.batch, args.on_card)
     for _ in range(3):
         fn()
     out = kernel_breakdown(fn, args.iters)
@@ -117,7 +136,7 @@ def main() -> None:
                           '--format=csv,noheader', '--id=0'],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps(dict(device=smi, path=args.path, batch=args.batch,
-                          **out), indent=1))
+                          on_card=args.on_card, **out), indent=1))
 
 
 if __name__ == '__main__':

@@ -36,7 +36,25 @@ each fatal on failure:
    what each step may and may not move, ``Trainer.train_epoch(0)`` over 4
    batches and ``validate()`` with finite metrics, one ``g_step``'s
    gradients with f32 kernel operands against the same step on the eager
-   stacks, and the ms per step, fused beside unfused ``g_step``.
+   stacks, and the ms per step, fused beside unfused ``g_step``;
+8. ``gcn_stack_edge`` (K5, the forward in edge form) against its plain
+   version at the serving shapes (N = 13,824 graphs) and at a ragged N, J in
+   {10, 42}: f32 operands within 2e-5 of the plain version and of K1, bf16
+   operands within 1% of max|ref| and the mean rule of phase 3, two runs
+   bit-equal, timed beside its bound and beside K1 at the same N; and the
+   log-mel modes that serving adds to K2 against its plain version (1e-4):
+   ``log_mel_512`` at B = 8, T = 891 and B = 1, ``log_mel_400`` and VGGish
+   on 16 kHz (magnitude, 64 mels, uncentred frames of 512 and 400, htk
+   mels, offset log), and the framed entry bit-equal to the waveform entry;
+9. the streaming server: ``build_server()`` (flagship generator, both GCN
+   stacks on K5) on 8 seeded streams of 60 s at 45.6 kHz, driven once with
+   the launch counts set to 0 (1 log-mel and 2 edge-form launches, no K1
+   launch expected); the int16, mu-law, framed and framed mu-law wires and
+   ``pipeline_groups=2``; the chunked route, the dense kernel (K1) and f32
+   operands against the fused call; a2m's JAX output in
+   ``a2m_torch/testdata/streaming_golden.npz``; wall per call and realtime
+   factor for 8 streams and for one, with the upload and with the input
+   already on the card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -70,6 +88,9 @@ GRAD_FLOOR = 1e-4
 GRAD_STACK_TOL = 1e-1
 GRAD_TENSOR_TOL = 1e-1
 GRAD_L2_TOL = 1e-2
+# the serving configuration: concurrent streams, their length, and the
+# windows each gives at 15 pose frames per second (hop 32, window 64)
+SERVE_STREAMS, SERVE_SECONDS, SERVE_WINDOWS = 8, 60, 27
 
 
 def require(ok: bool, what: str) -> None:
@@ -459,7 +480,8 @@ def stack_launches() -> dict:
     from a2m_torch.nn import gcn_kernel as gk
     return {'gcn_stack': gk.gcn_stack.launches,
             'gcn_stack_fwd': gk.gcn_stack_fwd.launches,
-            'gcn_stack_bwd': gk.gcn_stack_bwd.launches}
+            'gcn_stack_bwd': gk.gcn_stack_bwd.launches,
+            'gcn_stack_edge': gk.gcn_stack_edge.launches}
 
 
 def reset_stack_launches() -> None:
@@ -467,6 +489,7 @@ def reset_stack_launches() -> None:
     gk.gcn_stack.launches = 0
     gk.gcn_stack_fwd.launches = 0
     gk.gcn_stack_bwd.launches = 0
+    gk.gcn_stack_edge.launches = 0
 
 
 def host_ms(fn, iters: int = 5, warmup: int = 2) -> float:
@@ -541,11 +564,12 @@ def train_phase() -> dict:
     g_before, d_before = snapshot(g_state.model), snapshot(d_state.model)
     for name, step, expected in (
             ('g_step', g_step, {'gcn_stack': 0, 'gcn_stack_fwd': 2,
-                                'gcn_stack_bwd': 2}),
+                                'gcn_stack_bwd': 2, 'gcn_stack_edge': 0}),
             ('d_step', d_step, {'gcn_stack': 2, 'gcn_stack_fwd': 0,
-                                'gcn_stack_bwd': 0}),
+                                'gcn_stack_bwd': 0, 'gcn_stack_edge': 0}),
             ('eval_step', eval_step, {'gcn_stack': 2, 'gcn_stack_fwd': 0,
-                                      'gcn_stack_bwd': 0})):
+                                      'gcn_stack_bwd': 0,
+                                      'gcn_stack_edge': 0})):
         reset_stack_launches()
         metrics = step()
         torch.cuda.synchronize()
@@ -680,6 +704,315 @@ def train_phase() -> dict:
                 fused_vs_eager_grad=worst, batch=batch, **times)
 
 
+def edge_phase() -> dict:
+    """K5 against its plain version and against K1; returns its entry of
+    the kernels line."""
+    import torch
+    from a2m_torch import constants
+    from a2m_torch.nn import gcn_kernel as gk
+
+    f, heads, n_main = 64, 4, SERVE_STREAMS * SERVE_WINDOWS * 64
+    gen = torch.Generator().manual_seed(6)
+    adj = {10: constants.adjacency_from_edges(constants.body_edges(), 10),
+           42: constants.adjacency_from_edges(constants.hand_edges(), 42)}
+    entry = dict(ms=0.0, plain_ms=0.0, flops=0, bytes=0, max_abs_err=0.0)
+    k1_ms = 0.0
+    for j in (10, 42):
+        params = random_stack_params(f, heads, gen).cuda()
+        a = torch.as_tensor(adj[j]).cuda()
+        print(f'gcn_stack_edge J={j}: {gk.edge_tile(a, f)} graphs per block, '
+              f'{gk.edge_routing(a)["edges"]} edges', flush=True)
+        for n in (n_main, 1001):
+            x = torch.randn(n, j, f, generator=gen).cuda()
+            ref32 = gk.gcn_stack_edge_plain(x, params, a, heads, precise=True)
+            for precise in (True, False):
+                tag = f'gcn_stack_edge J={j} N={n} precise={precise}'
+                got = gk.gcn_stack_edge(x, params, a, heads, precise=precise)
+                again = gk.gcn_stack_edge(x, params, a, heads,
+                                          precise=precise)
+                ref = gk.gcn_stack_edge_plain(x, params, a, heads,
+                                              precise=precise)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(got).all()),
+                        f'{tag}: non-finite output')
+                require(bool(torch.equal(got, again)),
+                        f'{tag}: two runs on the same input differ')
+                err, scale = rel_err(got, ref)
+                tol = 2e-5 if precise else 0.01 * scale
+                print(f'{tag}: bit-equal over two runs; max_abs_err='
+                      f'{err:.3e} (max|ref| {scale:.3f}, tol {tol:.3e})',
+                      flush=True)
+                require(err <= tol, f'{tag}: {err} > {tol}')
+                if precise:
+                    # with f32 operands the edge form and the dense kernel
+                    # compute one function up to summation order
+                    dense = gk.gcn_stack(x, params, a, heads, precise=True)
+                    err_k1 = (got - dense).abs().max().item()
+                    print(f'{tag}: max|K5 - K1|={err_k1:.3e} (tol 2e-5)',
+                          flush=True)
+                    require(err_k1 <= 2e-5, f'{tag}: differs from gcn_stack '
+                            f'by {err_k1}')
+                    continue
+                mean_err = (got - ref).abs().mean().item()
+                gap = (ref - ref32).abs().mean().item()
+                print(f'{tag}: mean|kernel - plain bf16| {mean_err:.3e}, '
+                      f'mean|plain bf16 - plain f32| {gap:.3e} (tol '
+                      f'{BF16_MEAN_SHARE} of it)', flush=True)
+                require(mean_err <= BF16_MEAN_SHARE * gap,
+                        f'{tag}: mean error {mean_err} not below '
+                        f'{BF16_MEAN_SHARE} x the gap {gap}')
+                if n == n_main:
+                    entry['max_abs_err'] = max(entry['max_abs_err'], err)
+        # the serving path's mode: bf16 operands, N = streams x windows x T
+        x = torch.randn(n_main, j, f, generator=gen).cuda()
+        ms = cuda_ms(lambda: gk.gcn_stack_edge(x, params, a, heads))
+        dense = cuda_ms(lambda: gk.gcn_stack(x, params, a, heads))
+        plain = cuda_ms(lambda: gk.gcn_stack_edge_plain(x, params, a, heads),
+                        3, 1)
+        ms_f32 = cuda_ms(lambda: gk.gcn_stack_edge(x, params, a, heads,
+                                                   precise=True))
+        ms_again = cuda_ms(lambda: gk.gcn_stack_edge(x, params, a, heads))
+        flops = gk.stack_flops(n_main, adj[j], f, heads)
+        nbytes = gk.stack_edge_bytes(n_main, adj[j], f, heads)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+        print(f'gcn_stack_edge J={j} N={n_main}: kernel_ms={ms:.4f} (again '
+              f'{ms_again:.4f}; f32 operands {ms_f32:.4f}) gcn_stack (K1) at '
+              f'the same N {dense:.4f} plain_ms={plain:.4f} bound_ms='
+              f'{b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, '
+              f'{nbytes / 1e6:.1f} MB)', flush=True)
+        entry['ms'] += ms
+        entry['plain_ms'] += plain
+        entry['flops'] += flops
+        entry['bytes'] += nbytes
+        k1_ms += dense
+    entry['bound_ms'], entry['bound_by'] = bound(entry.pop('flops'),
+                                                 entry.pop('bytes'),
+                                                 PEAK_BF16)
+    print(f'gcn_stack_edge both stacks N={n_main}: kernel_ms='
+          f'{entry["ms"]:.4f}, gcn_stack (K1) {k1_ms:.4f}, bound_ms='
+          f'{entry["bound_ms"]:.4f}', flush=True)
+    return entry
+
+
+def log_mel_modes_phase() -> dict:
+    """The log-mel modes of the serving path against the plain version:
+    every frontend family at pose rate, small batches with many frames, and
+    the framed entry."""
+    import torch
+    from a2m_torch.audio import frontend, mel_kernel
+    from a2m_torch.eval import streaming
+    from a2m_torch.pipeline import SR
+
+    gen = torch.Generator().manual_seed(7)
+    out = {}
+    cases = [('log_mel_512', SR, SERVE_STREAMS, SERVE_SECONDS, True),
+             ('log_mel_512', SR, 1, SERVE_SECONDS, True),
+             ('log_mel_400', 16000, SERVE_STREAMS, SERVE_SECONDS, True),
+             ('vggish', 16000, SERVE_STREAMS, SERVE_SECONDS, True),
+             ('log_mel_400', 16000, 2, 2, False),   # hop 160 < frame_len
+             ('vggish', 16000, 2, 2, False)]
+    for method, sr, batch, seconds, pose_rate in cases:
+        spec = (streaming._pose_rate_spec(sr, method) if pose_rate
+                else {'log_mel_400': frontend.spec_log_mel_400,
+                      'vggish': frontend.spec_vggish}[method]())
+        y = (torch.randn(batch, sr * seconds, generator=gen) * 0.1).cuda()
+        m = frontend.dft_matrices(spec)
+        dr, di, mel = (torch.from_numpy(m[k]).cuda()
+                       for k in ('dr', 'di', 'mel'))
+        t = frontend.num_frames(spec, y.shape[1])
+        pad = spec.n_fft // 2 if spec.center else 0
+        args = (dr, di, mel, spec.hop_length, pad, t, spec.log_const,
+                spec.power, spec.log_mode)
+        got = frontend.log_mel(y, spec)
+        ref = mel_kernel.log_mel_plain(y, *args)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        groups = mel_kernel.bin_groups(batch, t, m['K'], y.device)
+        tag = (f'log_mel {method} sr={sr} hop={spec.hop_length} frame_len='
+               f'{m["frame_len"]} B={batch} T={t} mels={spec.n_mels}')
+        print(f'{tag}: max_abs_err={err:.3e} (tol 1e-4), bin groups '
+              f'{groups}', flush=True)
+        require(tuple(got.shape) == (batch, t, spec.n_mels)
+                and bool(torch.isfinite(got).all()),
+                f'{tag}: shape {tuple(got.shape)} or non-finite values')
+        require(err <= 1e-4, f'{tag}: {err} > 1e-4')
+        if not pose_rate:
+            continue
+        # the framed entry: the client's frames, the same kernel
+        framed = torch.from_numpy(frontend.frame_for_wire(
+            y.cpu().numpy(), spec)).cuda()
+        require(tuple(framed.shape) == (batch, t, m['frame_len']),
+                f'{tag}: framed {tuple(framed.shape)}')
+        same = torch.equal(frontend.log_mel_frames(framed, spec), got)
+        print(f'{tag}: framed entry bit-equal to the waveform entry: {same}',
+              flush=True)
+        require(same, f'{tag}: framed entry differs from the waveform entry')
+        if method == 'log_mel_512' and batch == SERVE_STREAMS:
+            ms = cuda_ms(lambda: mel_kernel.log_mel(y, *args))
+            plain = cuda_ms(lambda: mel_kernel.log_mel_plain(y, *args))
+            window = torch.hann_window(spec.n_fft, periodic=True,
+                                       device='cuda')
+
+            def library():
+                s = torch.stft(y, spec.n_fft, hop_length=spec.hop_length,
+                               window=window, center=True,
+                               pad_mode='reflect', return_complex=True)
+                p = (s.real ** 2 + s.imag ** 2).transpose(1, 2)
+                return torch.log(torch.clamp_min(p @ mel, spec.log_const))
+
+            lib_err = (library() - ref).abs().max().item()
+            lib_ms = cuda_ms(library)
+            flops = mel_kernel.log_mel_flops(batch, t, spec.n_fft, m['K'])
+            nbytes = mel_kernel.log_mel_bytes(batch, y.shape[1], t,
+                                              m['frame_len'],
+                                              spec.hop_length, m['K'])
+            b_ms, b_by = bound(flops, nbytes, PEAK_FP32)
+            print(f'{tag}: kernel_ms={ms:.4f} plain_ms={plain:.4f} '
+                  f'library_ms={lib_ms:.4f} (torch.stft route, max_abs_err '
+                  f'vs plain {lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}; '
+                  f'{flops / 1e9:.3f} GFLOP by FFT, {nbytes / 1e6:.1f} MB)',
+                  flush=True)
+            out = dict(batch=batch, n_frames=t, ms=ms, plain_ms=plain,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       max_abs_err=err)
+    return out
+
+
+def serve_phase(smi: str) -> dict:
+    """The streaming server at full width: 8 streams of 60 s through one
+    fused call, its wires and routes against each other, and a2m's JAX
+    output."""
+    import numpy as np
+    import torch
+    from a2m_torch.audio import mel_kernel
+    from a2m_torch.eval import streaming
+    from a2m_torch.pipeline import SR, build_server
+
+    t0 = time.perf_counter()
+    serve = build_server()
+    print(f'serve: build_server {time.perf_counter() - t0:.2f} s', flush=True)
+    gen = torch.Generator().manual_seed(8)
+    n = SR * SERVE_SECONDS
+    waves = [(torch.randn(n, generator=gen) * 0.1).numpy()
+             for _ in range(SERVE_STREAMS)]
+    serve(waves)                      # warm-up: kernels load, cuDNN picks
+
+    reset_stack_launches()
+    mel_kernel.log_mel.launches = 0
+    poses = serve(waves)
+    launches = {'log_mel': mel_kernel.log_mel.launches, **stack_launches()}
+    print(f'serve: launches in one fused call of {SERVE_STREAMS} x '
+          f'{SERVE_SECONDS} s {launches}', flush=True)
+    require(launches == {'log_mel': 1, 'gcn_stack_edge': 2, 'gcn_stack': 0,
+                         'gcn_stack_fwd': 0, 'gcn_stack_bwd': 0},
+            f'serving launches {launches}, expected log_mel 1, '
+            f'gcn_stack_edge 2 and no other')
+    t_pose = 1 + n // 3072
+    require(len(poses) == SERVE_STREAMS and all(
+        p.shape == (t_pose, 104) and p.dtype == np.float32
+        and np.isfinite(p).all() for p in poses),
+        f'serving poses {[p.shape for p in poses]}')
+    fused = np.stack(poses)
+    scale = float(np.abs(fused).max())
+
+    def rel(got) -> float:
+        got = np.stack(got)
+        require(got.shape == fused.shape and bool(np.isfinite(got).all()),
+                f'serving poses {got.shape} or non-finite values')
+        return float(np.abs(got - fused).max()) / scale
+
+    # (a) the wires
+    errs = {}
+    errs['int16'] = rel(serve([(w * 32767).astype(np.int16) for w in waves]))
+    wire_u = [streaming.encode_ulaw(w) for w in waves]
+    ulaw = serve(wire_u, encoding='ulaw')
+    errs['ulaw'] = rel(ulaw)
+    errs['framed'] = rel(serve(streaming.frame_streams_for_wire(waves, SR),
+                               framed_n_samples=n))
+    framed_u = streaming.frame_streams_for_wire(waves, SR, encoding='ulaw')
+    errs['framed_ulaw_vs_ulaw'] = float(np.abs(np.stack(serve(
+        framed_u, encoding='ulaw', framed_n_samples=n))
+        - np.stack(ulaw)).max()) / scale
+    # two batches of 4 streams: the same function, but cuDNN and cuBLAS may
+    # pick other algorithms for the other batch size, and a last-bit
+    # difference ahead of a stack flips bf16 rounding ties inside it; with
+    # f32 operands only the summation order is left
+    errs['pipeline_groups_2'] = rel(serve(waves, pipeline_groups=2))
+    # (b) the chunked route, blended on the host
+    errs['chunked'] = rel(serve(waves, fused=False, batch_size=64))
+    # (c) the dense kernel in place of the edge form
+    errs['k1_bf16'] = rel(build_server(fused_edge=False)(waves))
+    serve_f32 = build_server(fused_precise=True)
+    f32 = np.stack(serve_f32(waves))
+    errs['k5_f32_vs_bf16'] = rel(f32)
+    errs['pipeline_groups_2_f32'] = float(np.abs(np.stack(serve_f32(
+        waves, pipeline_groups=2)) - f32).max()) / scale
+    errs['k1_f32_vs_k5_f32'] = float(np.abs(np.stack(build_server(
+        fused_edge=False, fused_precise=True)(waves)) - f32).max()) / scale
+    print('serve: max|pose - fused call|/max|pose|: '
+          + ' '.join(f'{k}={v:.3e}' for k, v in errs.items())
+          + f' (max|pose| {scale:.2f}; tol framed and framed_ulaw_vs_ulaw '
+          f'1e-5, pipeline_groups_2 and chunked 1e-3, pipeline_groups_2_f32 '
+          f'1e-5, k1_bf16 1e-2, k1_f32_vs_k5_f32 1e-4; int16 and ulaw are '
+          f'other inputs)',
+          flush=True)
+    for key, tol in (('framed', 1e-5), ('framed_ulaw_vs_ulaw', 1e-5),
+                     ('pipeline_groups_2', 1e-3),
+                     ('pipeline_groups_2_f32', 1e-5), ('chunked', 1e-3),
+                     ('k1_bf16', 1e-2), ('k5_f32_vs_bf16', 1e-2),
+                     ('k1_f32_vs_k5_f32', 1e-4), ('int16', 1e-2),
+                     ('ulaw', 0.5)):
+        require(errs[key] <= tol, f'serving {key}: {errs[key]} > {tol}')
+
+    # (d) a2m's JAX output on 2 streams of 10 s
+    with np.load(ROOT / 'a2m_torch' / 'testdata' / 'streaming_golden.npz') \
+            as z:
+        golden = {k: z[k] for k in z.files}
+    rng = np.random.default_rng(int(golden['seed']))
+    g_waves = [(rng.standard_normal(SR * 10) * 0.1).astype(np.float32)
+               for _ in range(2)]
+    g_framed = streaming.frame_streams_for_wire(g_waves, SR, encoding='ulaw')
+    g_errs = {}
+    for name, fn, tol in (('precise', serve_f32, 1e-4), ('bf16', serve, 1e-2)):
+        for wire, got in (
+                ('linear', fn(g_waves)),
+                ('framed_ulaw', fn(g_framed, encoding='ulaw',
+                                   framed_n_samples=SR * 10))):
+            err = float(np.abs(np.stack(got) - golden[wire]).max()
+                        / np.abs(golden[wire]).max())
+            g_errs[f'{name}_{wire}'] = err
+            require(err <= tol, f'golden {name} {wire}: {err} > {tol}')
+    print('serve vs JAX golden (2 x 10 s, T=149), max_err/max|pose|: '
+          + ' '.join(f'{k}={v:.3e}' for k, v in g_errs.items())
+          + ' (tol precise 1e-4, bf16 1e-2)', flush=True)
+
+    # wall per call: the host clock around calls that end in the download
+    on_card = [torch.from_numpy(w).cuda() for w in waves]
+    times = dict(
+        s8_upload_ms=host_ms(lambda: serve(waves)),
+        s8_on_card_ms=host_ms(lambda: serve(on_card)),
+        s8_upload_groups2_ms=host_ms(lambda: serve(waves,
+                                                   pipeline_groups=2)),
+        s8_framed_ulaw_upload_ms=host_ms(lambda: serve(
+            framed_u, encoding='ulaw', framed_n_samples=n)),
+        s1_upload_ms=host_ms(lambda: serve(waves[:1])),
+        s1_on_card_ms=host_ms(lambda: serve(on_card[:1])))
+    k1 = build_server(fused_edge=False)
+    times['s8_k1_on_card_ms'] = host_ms(lambda: k1(on_card))
+    times['s8_on_card_ms_again'] = host_ms(lambda: serve(on_card))
+    rt = {k.replace('_ms', '_realtime'):
+          (1 if k.startswith('s1') else SERVE_STREAMS) * SERVE_SECONDS
+          / (v / 1e3) for k, v in times.items()}
+    print(f'serve [{smi}]: wall per fused call, host clock, download '
+          f'included: ' + ' '.join(f'{k}={v:.2f}' for k, v in times.items()),
+          flush=True)
+    print(f'serve [{smi}]: realtime factor (audio seconds per wall second): '
+          + ' '.join(f'{k}={v:.1f}' for k, v in rt.items()), flush=True)
+    return dict(launches=launches, streams=SERVE_STREAMS,
+                seconds=SERVE_SECONDS, pose_frames=t_pose, errors=errs,
+                golden_rel_err=g_errs, **times, **rt)
+
+
 def slice_phase() -> dict:
     import numpy as np
     import torch
@@ -784,6 +1117,11 @@ def main() -> int:
     print(json.dumps({'slice': sl, 'device': smi}))
     tr = train_phase()
     print(json.dumps({'train': tr, 'device': smi}))
+    edge = edge_phase()
+    mel_serving = log_mel_modes_phase()
+    print(json.dumps({'log_mel_serving': mel_serving, 'device': smi}))
+    sv = serve_phase(smi)
+    print(json.dumps({'serve': sv, 'device': smi}))
     stack = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='gcn_stack', source='a2m_torch/csrc/gcn_stack.cu',
@@ -801,6 +1139,10 @@ def main() -> int:
              replaces='a2m/nn/pallas_gcn.py:557',
              launches=tr['launches']['g_step']['gcn_stack_bwd'], **stack,
              **bwd),
+        dict(name='gcn_stack_edge',
+             source='a2m_torch/csrc/gcn_stack_edge.cu',
+             replaces='a2m/nn/pallas_gcn.py:879',
+             launches=sv['launches']['gcn_stack_edge'], **stack, **edge),
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
