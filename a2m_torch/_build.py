@@ -44,8 +44,7 @@ SIGNATURES = {
     },
     'log_mel': {
         'a2m_log_mel': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _F, _P],
-        'a2m_log_mel_groups': [_I, _I, _I, _I],
+                        _I, _I, _I, _F, _P],
     },
 }
 

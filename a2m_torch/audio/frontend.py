@@ -9,10 +9,13 @@ scaling, :func:`log_mel` and :func:`log_mel_frames`, which run the fused
 log-mel kernel (:mod:`a2m_torch.audio.mel_kernel`) on CUDA, and the
 client-side :func:`frame_for_wire` (numpy).
 
-The direct windowed DFT computes the same function as a2m's fast path,
-which takes the radix route (``frontend.py:207-237``); the two agree to
-f32 rounding.  Exact mode (hi/lo split matrices, precise log), which only
-the data pipeline calls, and ``pad_mode='constant'`` are not ported yet.
+On CUDA the kernel runs a real FFT (a2m's fast path takes the same
+function by a two-stage radix DFT, ``frontend.py:138-237``) and reads the
+tables of :func:`fft_tables`: the window, the twiddles and the filterbank
+over its nonzeros.  On the CPU the plain version runs the direct windowed
+DFT on :func:`dft_matrices`.  All agree to f32 rounding.  Exact mode
+(hi/lo split matrices, precise log), which only the data pipeline calls,
+and ``pad_mode='constant'`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -92,6 +95,18 @@ def _check_supported(spec: MelSpec) -> None:
             f'reflect pad are supported, got {spec}')
 
 
+def _window(spec: MelSpec) -> np.ndarray:
+    """(n_fft,) float64: the periodic Hann window of win_length as the frame
+    of n_fft points sees it, centred inside n_fft for librosa frames, first
+    for VGGish frames (whose samples past win_length are the zero pad)."""
+    window = np.zeros(spec.n_fft)
+    off = ((spec.n_fft - spec.win_length) // 2
+           if spec.frame_style == 'librosa' and spec.win_length < spec.n_fft
+           else 0)
+    window[off:off + spec.win_length] = mel_np.periodic_hann(spec.win_length)
+    return window
+
+
 @functools.lru_cache(maxsize=16)
 def dft_matrices(spec: MelSpec) -> dict:
     """Window-folded real/imag DFT matrices (frame_len, K) and the mel
@@ -101,15 +116,9 @@ def dft_matrices(spec: MelSpec) -> dict:
     the first win_length rows of the n_fft-point DFT, which absorbs the
     zero-padding to n_fft."""
     _check_supported(spec)
-    n_fft, win, k_bins = spec.n_fft, spec.win_length, spec.n_fft // 2 + 1
-    window = mel_np.periodic_hann(win)
-    if spec.frame_style == 'librosa':
-        frame_len = n_fft
-        w_full = np.zeros(n_fft)
-        off = (n_fft - win) // 2 if win < n_fft else 0
-        w_full[off:off + win] = window
-    else:
-        frame_len, w_full = win, window
+    n_fft, k_bins = spec.n_fft, spec.n_fft // 2 + 1
+    frame_len = n_fft if spec.frame_style == 'librosa' else spec.win_length
+    w_full = _window(spec)[:frame_len]
     n = np.arange(frame_len)[:, None]
     k = np.arange(k_bins)[None, :]
     ang = -2.0 * np.pi * n * k / n_fft
@@ -127,11 +136,62 @@ def dft_matrices(spec: MelSpec) -> dict:
                 mel=np.ascontiguousarray(mel.astype(f32)))
 
 
-@functools.lru_cache(maxsize=8)
-def _device_matrices(spec: MelSpec, device: torch.device):
+def sparse_mel(mel: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Dense (K, n_mels) filterbank -> (``mel_bins`` (n_mels, 3) int32:
+    first nonzero bin, bin count, offset into the weights; ``weights``
+    (nnz,)), the dense matrix's entries bit for bit.  A mel's bins run from
+    its first nonzero to its last, zeros between them included, so the
+    tables rebuild the dense matrix exactly."""
+    bins, weights, offset = np.zeros((mel.shape[1], 3), np.int32), [], 0
+    for j in range(mel.shape[1]):
+        nz = np.flatnonzero(mel[:, j])
+        first, count = (nz[0], nz[-1] - nz[0] + 1) if nz.size else (0, 0)
+        bins[j] = first, count, offset
+        weights.append(mel[first:first + count, j])
+        offset += count
+    return bins, np.concatenate(weights)
+
+
+def twiddles(n_fft: int) -> np.ndarray:
+    """(n_fft // 2, 2) f32: ``exp(-2 pi i k / n_fft)`` as (re, im), built
+    in float64 and rounded once."""
+    ang = -2.0 * np.pi * np.arange(n_fft // 2) / n_fft
+    return np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def fft_tables(spec: MelSpec) -> dict:
+    """What the FFT kernel reads besides the waveform: the window as the
+    frame of n_fft points sees it (centred inside n_fft for librosa frames;
+    VGGish's frames of win_length are zero-padded to n_fft), the twiddles,
+    and the filterbank of :func:`dft_matrices` over its nonzeros."""
     m = dft_matrices(spec)
-    return tuple(torch.from_numpy(m[k]).to(device)
-                 for k in ('dr', 'di', 'mel'))
+    bins, weights = sparse_mel(m['mel'])
+    return dict(frame_len=m['frame_len'],
+                window=_window(spec).astype(np.float32),
+                twiddle=twiddles(spec.n_fft), mel_bins=bins,
+                mel_weights=weights)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_tables(spec: MelSpec,
+               device: torch.device | str) -> mel_kernel.MelTables:
+    """The log-mel's tables on ``device``: the kernel's on every device,
+    and on the CPU also the plain version's dense matrices."""
+    device = torch.device(device)
+    t = fft_tables(spec)
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    dense = {}
+    if device.type == 'cpu':
+        m = dft_matrices(spec)
+        dense = {k: put(m[k]) for k in ('dr', 'di', 'mel')}
+    return mel_kernel.MelTables(
+        frame_len=t['frame_len'], window=put(t['window']),
+        twiddle=put(t['twiddle']), mel_bins=put(t['mel_bins']),
+        mel_weights=put(t['mel_weights']), **dense)
 
 
 def _pcm_to_float(y: torch.Tensor) -> torch.Tensor:
@@ -158,10 +218,10 @@ def log_mel(y: torch.Tensor, spec: MelSpec,
     y = _pcm_to_float(y).reshape(-1, y.shape[-1])
     if n_frames is None:
         n_frames = num_frames(spec, y.shape[-1])
-    dr, di, mel = _device_matrices(spec, y.device)
     pad = spec.n_fft // 2 if spec.center else 0
-    out = mel_kernel.log_mel(y, dr, di, mel, spec.hop_length, pad, n_frames,
-                             spec.log_const, spec.power, spec.log_mode)
+    out = mel_kernel.log_mel(y, mel_tables(spec, y.device), spec.hop_length,
+                             pad, n_frames, spec.log_const, spec.power,
+                             spec.log_mode)
     return out.reshape(*lead, n_frames, spec.n_mels)
 
 
@@ -201,8 +261,8 @@ def log_mel_frames(frames: torch.Tensor, spec: MelSpec) -> torch.Tensor:
     identical to :func:`log_mel` on the waveform they were cut from."""
     _check_supported(spec)
     lead, (t, frame_len) = frames.shape[:-2], frames.shape[-2:]
-    dr, di, mel = _device_matrices(spec, frames.device)
     out = mel_kernel.log_mel_framed(
-        _pcm_to_float(frames).reshape(-1, t, frame_len), dr, di, mel,
-        spec.log_const, spec.power, spec.log_mode)
+        _pcm_to_float(frames).reshape(-1, t, frame_len),
+        mel_tables(spec, frames.device), spec.log_const, spec.power,
+        spec.log_mode)
     return out.reshape(*lead, t, spec.n_mels)

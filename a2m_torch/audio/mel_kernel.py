@@ -3,23 +3,63 @@
 The kernel (``a2m_torch/csrc/log_mel.cu``) replaces the Pallas TPU kernel
 ``a2m/audio/pallas_mel.py::_kernel`` (called by ``pallas_log_mel``,
 ``:68-232``) in fast mode: framing of the waveform (centred and
-reflect-padded, or unpadded), window-folded DFT, power or magnitude, mel
-projection onto up to 128 mels, and ``log(max(mel, c))`` or ``log(mel + c)``.
-A stack of frames cut by the client goes through the same kernel as a
-signal with ``hop = frame_len`` and no pad (:func:`log_mel_framed`).
+reflect-padded, or unpadded), window, real FFT of ``n_fft`` points, power or
+magnitude, mel projection over the filterbank's nonzeros onto up to 128
+mels, and ``log(max(mel, c))`` or ``log(mel + c)``.  A stack of frames cut
+by the client goes through the same kernel as a signal with ``hop =
+frame_len`` and no pad (:func:`log_mel_framed`).
 
 :func:`log_mel` launches the kernel for CUDA tensors and runs
-:func:`log_mel_plain` for CPU tensors, and for nothing else.
+:func:`log_mel_plain`, the direct windowed DFT in f32, for CPU tensors, and
+for nothing else.  What either reads besides the waveform is a
+:class:`MelTables` (built by ``frontend.mel_tables``).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
-MAX_MELS = 128    # the kernel's mel width (one column per thread pair)
+MAX_MELS = 128    # the kernel's mel width
+MAX_FFT = 2048    # the kernel's largest FFT (1024 complex points a block)
+
+
+@dataclass(frozen=True, eq=False)
+class MelTables:
+    """The log-mel's constants on one device.
+
+    The kernel's: ``window`` (n_fft,) f32, the window as the frame of
+    ``n_fft`` points sees it (zero outside it); ``twiddle`` (n_fft/2, 2) f32,
+    ``exp(-2 pi i k / n_fft)`` as (re, im), built in float64; ``mel_bins``
+    (n_mels, 3) int32, each mel's first nonzero bin, bin count and offset
+    into ``mel_weights`` (nnz,) f32, the dense f32 filterbank's entries.
+    The plain version's: ``dr``, ``di`` (frame_len, K) window-folded DFT
+    matrices and ``mel`` (K, n_mels); None on a CUDA device, where only the
+    kernel reads the tables."""
+    frame_len: int
+    window: torch.Tensor
+    twiddle: torch.Tensor
+    mel_bins: torch.Tensor
+    mel_weights: torch.Tensor
+    dr: torch.Tensor | None = None
+    di: torch.Tensor | None = None
+    mel: torch.Tensor | None = None
+
+    @property
+    def n_fft(self) -> int:
+        return self.window.shape[0]
+
+    @property
+    def n_mels(self) -> int:
+        return self.mel_bins.shape[0]
+
+    def tensors(self) -> tuple:
+        return tuple(t for t in (self.window, self.twiddle, self.mel_bins,
+                                 self.mel_weights, self.dr, self.di, self.mel)
+                     if t is not None)
 
 
 def frames_of(y: torch.Tensor, frame_len: int, hop: int, pad: int,
@@ -52,57 +92,70 @@ def log_mel_plain(y: torch.Tensor, dr: torch.Tensor, di: torch.Tensor,
     return torch.log(torch.clamp_min(p @ mel, log_const))
 
 
-def log_mel(y: torch.Tensor, dr: torch.Tensor, di: torch.Tensor,
-            mel: torch.Tensor, hop: int, pad: int, n_frames: int,
-            log_const: float, power: float = 2.0,
+def check_kernel_shapes(n_fft: int, frame_len: int, n_mels: int) -> None:
+    """Raise ``ValueError`` for what the kernel does not take: an ``n_fft``
+    that is not a power of two from 4 to :data:`MAX_FFT`, frames longer
+    than ``n_fft``, more than :data:`MAX_MELS` mels."""
+    if not 4 <= n_fft <= MAX_FFT or n_fft & (n_fft - 1):
+        raise ValueError(f'log_mel: n_fft {n_fft} is not a power of two '
+                         f'from 4 to {MAX_FFT}')
+    if not 1 <= frame_len <= n_fft:
+        raise ValueError(f'log_mel: frames of {frame_len} samples do not fit '
+                         f'n_fft {n_fft}')
+    if not 1 <= n_mels <= MAX_MELS:
+        raise ValueError(f'log_mel: {n_mels} mels, the kernel takes 1 to '
+                         f'{MAX_MELS}')
+
+
+def log_mel(y: torch.Tensor, tables: MelTables, hop: int, pad: int,
+            n_frames: int, log_const: float, power: float = 2.0,
             log_mode: str = 'eps') -> torch.Tensor:
     """(B, N) f32 waveform -> (B, n_frames, n_mels) f32 log-mel.
 
-    ``dr``/``di`` (frame_len, K) window-folded DFT matrices, ``mel``
-    (K, n_mels) with at most 128 mels; ``power`` 2 or 1 (magnitude);
-    ``log_mode`` ``'eps'`` (``log(max(mel, log_const))``) or ``'offset'``
-    (``log(mel + log_const)``).  CUDA tensors launch the kernel, CPU tensors
-    run :func:`log_mel_plain`."""
-    frame_len, k = dr.shape
-    n_mels = mel.shape[-1]
+    ``power`` 2 or 1 (magnitude); ``log_mode`` ``'eps'``
+    (``log(max(mel, log_const))``) or ``'offset'`` (``log(mel +
+    log_const)``).  CUDA tensors launch the kernel, CPU tensors run
+    :func:`log_mel_plain` on the tables' dense matrices."""
     if power not in (1.0, 2.0) or log_mode not in ('eps', 'offset'):
         raise ValueError(f'log_mel: power {power} / log_mode {log_mode!r} '
                          f'not in (1, 2) / (eps, offset)')
     if y.ndim != 2:
         raise ValueError(f'log_mel: waveform must be (B, N), got '
                          f'{tuple(y.shape)}')
-    if any(t.dtype != torch.float32 for t in (y, dr, di, mel)):
-        raise TypeError('log_mel: waveform and matrices must be float32')
-    if di.shape != (frame_len, k) or mel.shape != (k, n_mels) \
-            or not 1 <= n_mels <= MAX_MELS:
-        raise ValueError(f'log_mel: dr {tuple(dr.shape)}, di '
-                         f'{tuple(di.shape)}, mel {tuple(mel.shape)} do not '
-                         f'fit (frame_len, K), (K, n_mels <= {MAX_MELS})')
+    if y.dtype != torch.float32:
+        raise TypeError('log_mel: the waveform must be float32')
     if pad and pad >= y.shape[-1]:
         raise ValueError(f'log_mel: reflect pad {pad} needs more than '
                          f'{y.shape[-1]} samples')
-    if not all(t.device == y.device for t in (dr, di, mel)):
+    if not all(t.device == y.device for t in tables.tensors()):
         raise ValueError('log_mel: tensors on different devices')
     if y.device.type == 'cpu':
-        return log_mel_plain(y, dr, di, mel, hop, pad, n_frames, log_const,
-                             power, log_mode)
+        if tables.dr is None:
+            raise ValueError('log_mel: CPU tables without the dense matrices')
+        return log_mel_plain(y, tables.dr, tables.di, tables.mel, hop, pad,
+                             n_frames, log_const, power, log_mode)
     if y.device.type != 'cuda':
         raise ValueError(f'log_mel: no kernel for device {y.device}')
-    if frame_len % 16:
-        raise ValueError(f'log_mel: frame_len {frame_len} must be a '
-                         f'multiple of 16')
+    n_fft, n_mels = tables.n_fft, tables.n_mels
+    check_kernel_shapes(n_fft, tables.frame_len, n_mels)
+    if (tables.twiddle.shape != (n_fft // 2, 2)
+            or tables.mel_bins.shape != (n_mels, 3)
+            or tables.mel_bins.dtype != torch.int32
+            or any(t.dtype != torch.float32 for t in (
+                tables.window, tables.twiddle, tables.mel_weights))
+            or not all(t.is_contiguous() for t in tables.tensors())):
+        raise ValueError('log_mel: tables of the wrong shape, type or '
+                         'layout for the kernel')
     from a2m_torch import _build
-    y, dr, di, mel = (t.contiguous() for t in (y, dr, di, mel))
+    y = y.contiguous()
     batch = y.shape[0]
     out = torch.empty(batch, n_frames, n_mels, device=y.device)
     lib = _build.load('log_mel')
-    groups = bin_groups(batch, n_frames, k, y.device)
-    part = (torch.empty(groups, batch, n_frames, n_mels, device=y.device)
-            if groups > 1 else out)
     code = lib.a2m_log_mel(
-        y.data_ptr(), out.data_ptr(), part.data_ptr(), dr.data_ptr(),
-        di.data_ptr(), mel.data_ptr(), batch, y.shape[1], frame_len, hop,
-        pad, n_frames, k, n_mels, groups, int(power == 1.0),
+        y.data_ptr(), out.data_ptr(), tables.window.data_ptr(),
+        tables.twiddle.data_ptr(), tables.mel_bins.data_ptr(),
+        tables.mel_weights.data_ptr(), batch, y.shape[1], tables.frame_len,
+        hop, pad, n_frames, n_fft, n_mels, int(power == 1.0),
         int(log_mode == 'offset'), log_const,
         torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(lib, code, 'log_mel')
@@ -110,63 +163,57 @@ def log_mel(y: torch.Tensor, dr: torch.Tensor, di: torch.Tensor,
     return out
 
 
-#: kernel launches since the count was last set to 0.  One launch is one
-#: device kernel, ``log_mel_kernel``, or two when ``bin_groups`` > 1:
-#: ``log_mel_finish`` then sums the partial mel sums and takes the log.
+#: kernel launches since the count was last set to 0 (one launch is one
+#: device kernel, ``log_mel_fft_kernel``)
 log_mel.launches = 0
 
 
-def log_mel_framed(frames: torch.Tensor, dr: torch.Tensor,
-                   di: torch.Tensor, mel: torch.Tensor, log_const: float,
-                   power: float = 2.0, log_mode: str = 'eps'
-                   ) -> torch.Tensor:
+def log_mel_framed(frames: torch.Tensor, tables: MelTables,
+                   log_const: float, power: float = 2.0,
+                   log_mode: str = 'eps') -> torch.Tensor:
     """(B, T, frame_len) f32 sample frames -> (B, T, n_mels): the frames
     laid end to end are a signal whose frames start every ``frame_len``
     samples, so this is :func:`log_mel` with ``hop = frame_len`` and no
     pad, on either device."""
     batch, n_frames, frame_len = frames.shape
-    if frame_len != dr.shape[0]:
+    if frame_len != tables.frame_len:
         raise ValueError(f'log_mel_framed: frames of {frame_len} samples, '
-                         f'DFT matrices of {dr.shape[0]}')
-    return log_mel(frames.reshape(batch, n_frames * frame_len), dr, di, mel,
+                         f'tables for {tables.frame_len}')
+    return log_mel(frames.reshape(batch, n_frames * frame_len), tables,
                    frame_len, 0, n_frames, log_const, power, log_mode)
 
 
-def bin_groups(batch: int, n_frames: int, k: int, device) -> int:
-    """Blocks the bin tiles of one (batch row, frame tile) are split over
-    on this card: more than 1 when the batch is too small to fill it."""
-    from a2m_torch import _build
-    return _build.load('log_mel').a2m_log_mel_groups(
-        batch, n_frames, k,
-        torch.cuda.get_device_properties(device).multi_processor_count)
-
-
-def log_mel_flops(batch: int, n_frames: int, n_fft: int, k: int,
-                  n_mels: int = MAX_MELS) -> int:
+def log_mel_flops(batch: int, n_frames: int, n_fft: int, nnz: int,
+                  n_mels: int) -> int:
     """Operations the log-mel function needs, counted by its cheapest
     algorithm: window, a real FFT of ``n_fft`` points (2.5 n log2 n, half
-    of a complex radix-2 FFT's 5 n log2 n), power, mel projection, log."""
+    of a complex radix-2 FFT's 5 n log2 n), power of the n_fft/2 + 1 bins,
+    mel projection over the filterbank's ``nnz`` nonzeros, log."""
     fft = round(2.5 * n_fft * math.log2(n_fft))
-    return batch * n_frames * (n_fft + fft + 3 * k + 2 * k * n_mels + n_mels)
+    k = n_fft // 2 + 1
+    return batch * n_frames * (n_fft + fft + 3 * k + 2 * nnz + n_mels)
 
 
-def direct_dft_flops(batch: int, n_frames: int, frame_len: int, k: int,
-                     n_mels: int = MAX_MELS) -> int:
-    """Operations of the direct-DFT algorithm the kernel runs (``frames @
-    dr``, ``frames @ di``, power, mel projection, log): ~27x
-    :func:`log_mel_flops` at n_fft 2048."""
-    rows = batch * n_frames
-    return rows * (2 * 2 * frame_len * k + 3 * k + 2 * k * n_mels + n_mels)
+def fft_kernel_flops(batch: int, n_frames: int, n_fft: int, nnz: int,
+                     n_mels: int) -> int:
+    """Operations the kernel runs: window, a complex radix-2 FFT of n_fft/2
+    points (n_fft/4 butterflies of 10 operations per stage), the real-input
+    split (16 per bin), power, mel over the nonzeros, log."""
+    m = n_fft // 2
+    k = m + 1
+    fft = 5 * m * round(math.log2(m))
+    return batch * n_frames * (n_fft + fft + 16 * k + 3 * k + 2 * nnz
+                               + n_mels)
 
 
 def log_mel_bytes(batch: int, n_samples: int, n_frames: int, frame_len: int,
-                  hop: int, k: int, n_mels: int = MAX_MELS) -> int:
-    """Bytes the log-mel function must move: the samples its frames cover
-    and the window and mel matrix, each read once, and the output written
-    once.  The window-folded DFT matrices (``2 * frame_len * k`` floats)
-    are operands of the direct DFT, not of the function, and are left
-    out."""
+                  hop: int, n_fft: int, nnz: int, n_mels: int) -> int:
+    """Bytes the log-mel function must move: the samples its frames cover,
+    the window and the filterbank's nonzeros (weights and, per mel, first
+    bin, count and offset), each read once, and the output written once.
+    The twiddle table (and the direct DFT's matrices) are operands of an
+    algorithm, not of the function, and are left out."""
     covered = min(n_frames * min(frame_len, hop) + max(frame_len - hop, 0),
                   n_samples)
-    return 4 * (batch * covered + frame_len + k * n_mels
+    return 4 * (batch * covered + n_fft + nnz + 3 * n_mels
                 + batch * n_frames * n_mels)

@@ -1,45 +1,63 @@
-// Fused log-mel frontend, CUDA C++ for sm_90a.
+// Fused log-mel frontend by FFT, CUDA C++ for sm_90a.
 //
 // Replaces the Pallas TPU kernel a2m/audio/pallas_mel.py::_kernel (called by
 // pallas_log_mel), fast mode: framing of the waveform (centred and
-// reflect-padded, or as it is) -> window-folded DFT (re and im products) ->
-// power re^2 + im^2, or its square root (magnitude) -> mel projection
-// accumulated over the bin tiles -> log(max(mel, c)) or log(mel + c).
-// Neither the frames nor the (T, K) spectrum go to device memory.  It
-// covers the three frontend families: log_mel_512 (frames of 2048, 1025
-// bins, 128 mels, power, eps log), log_mel_400 (frames of 512, 257 bins, 64
-// mels, magnitude, eps log) and VGGish (frames of 400 whose DFT matrix
-// absorbs the zero-padding to 512, htk mels, offset log).  A stack of
-// frames cut by the client is a signal with hop = frame_len and no pad.
+// reflect-padded, or as it is) -> window -> real DFT of n_fft points ->
+// power re^2 + im^2, or its square root (magnitude) -> mel projection ->
+// log(max(mel, c)) or log(mel + c).  The Pallas kernel runs the DFT as two
+// dense products because the TPU has no FFT; here it is a radix-2 FFT in
+// shared memory.  It covers the three frontend families: log_mel_512
+// (n_fft 2048, 1025 bins, 128 mels, power, eps log), log_mel_400 (frames of
+// 512 with the window of 400 centred inside, 257 bins, 64 mels, magnitude,
+// eps log) and VGGish (frames of 400 zero-padded to 512, htk mels, offset
+// log).  A stack of frames cut by the client is a signal with hop =
+// frame_len and no pad, and gives the same bits as the waveform it was cut
+// from: a frame's arithmetic depends only on its samples.
 //
 // Bound on the H100: at the main-path shapes (B = 128, T = 64 frames of
-// n_fft = 2048, K = 1025 bins, 128 mels) the function needs ~2.7 GFLOP by
-// FFT (real FFT plus the mel projection) against ~72 MB of frame samples
-// and output: ~0.04 ms at the 67 TFLOP/s fp32 rate.  This kernel runs the
-// direct DFT of the Pallas kernel instead, ~71 GFLOP (~27x), and is bound
-// by the fp32 FMA rate at ~1 ms (no TF32: the tolerance is 1e-4 in log
-// units).  What the design does about it: the DFT is a tiled SGEMM.  A
-// block takes one batch row, a tile of 64 frames and a range of 64-bin
-// tiles; a thread owns 4 frames x 4 bins of both the re and im sums, so a
-// 16-sample chunk of frames and of the two DFT matrices, staged in shared
-// memory (double-buffered through registers), feeds 32 FMAs per thread per
-// sample for three shared loads.  Frames are gathered with plain loads
-// straight from the unpadded waveform (the reflect pad is index arithmetic;
-// the hop-chunk concat of the Pallas kernel is a VMEM workaround and is not
-// carried over).  The power of a bin tile goes to shared memory and is
-// folded into the mel sums at once, which stay in registers.  When the
-// batch is too small to fill the card, the bin tiles are split over blocks
-// and a second small kernel sums their partial mel sums and takes the log.
-// An FFT-based kernel, or tensor cores (3xTF32 or split-bf16 GEMMs), are
-// later work.
+// n_fft = 2048, 128 mels over 2,013 filterbank nonzeros) the function needs
+// ~0.54 GFLOP (real FFT, window, power, mel over its nonzeros, log; 0.008 ms
+// at the 67 TFLOP/s fp32 rate) against ~71 MB of frame samples and output
+// (0.021 ms at 3.35 TB/s): it is bound by device memory.  The direct DFT of
+// the Pallas kernel did ~71 GFLOP (~130x).  What the design does about it:
+// - neither the frames nor the spectrum go to device memory; the waveform
+//   is read once (frames that overlap share it through L1/L2) and the
+//   (T, n_mels) output written once;
+// - a frame of n_fft real samples is packed into n_fft/2 complex points
+//   (even samples real, odd imaginary), gathered straight from the unpadded
+//   waveform (float2 loads where the frame lies inside the signal; at its
+//   ends the reflect pad is index arithmetic, and samples past the padded
+//   end or past frame_len read as zero) into bit-reversed order, then
+//   log2(n_fft/2) radix-2 decimation-in-time stages in shared memory, two
+//   stages a pass over 4 points a thread (5 passes and barriers at n_fft
+//   2048), then the real-input split with the post-twiddle gives bins
+//   0..n_fft/2, a thread taking bins k and n_fft/2 - k together;
+// - the twiddles exp(-2 pi i k / n_fft), k < n_fft/2, are a table built in
+//   float64 on the host and rounded to f32 (no __sinf/__cosf, no fast
+//   math): the tolerance is 1e-4 in log units; the stage of half-size h
+//   reads entry j * n_fft / (2h);
+// - complex points sit in shared memory under an XOR swizzle inside runs of
+//   16 (sw below), which keeps the bit-reversed stores and the passes free
+//   of bank conflicts;
+// - the mel projection runs over each mel's nonzero bins only (a first bin,
+//   a count and an offset into the weights, taken bit for bit from the
+//   dense f32 matrix), summed in bin order: no atomics, bit-equal reruns;
+// - a block of 256 threads holds 1024 complex points, i.e. one frame at
+//   n_fft 2048 and four at 512 (frames of any batch row, in row-major
+//   order), and walks over groups of frames with a grid stride, so the
+//   twiddle table is loaded into shared memory once per block; 8 blocks an
+//   SM (32 registers a thread), and the grid is the card's resident block
+//   count or the number of groups, whichever is smaller.
+// More stages a pass (8 points a thread), spreading a long mel over two
+// threads, and the FFT's work across the card at B = 1 are later work.
 //
-// Layout: y (B, n_samples) f32; dr, di (frame_len, K) f32 window-folded DFT
-// matrices; mel (K, n_mels) f32, n_mels <= 128 (a thread pair owns one of
-// 128 mel columns; those past n_mels idle); out (B, n_frames, n_mels) f32;
-// part (groups, B, n_frames, n_mels) f32 scratch when groups > 1.  Frame t
+// Layout: y (B, n_samples) f32; window (n_fft,) f32, the window as the
+// frame of n_fft points sees it (zero outside it); twiddle (n_fft/2,) f32
+// complex pairs; mel_bins (n_mels, 3) int32: first bin, bin count, offset
+// into mel_weights (nnz,) f32; out (B, n_frames, n_mels) f32.  n_fft is a
+// power of two from 4 to 2048, frame_len <= n_fft, n_mels <= 128.  Frame t
 // starts at t * hop in the signal padded by `pad` samples of reflection on
-// each side (pad may be 0, hop smaller or larger than frame_len); samples
-// past the padded end read as zero.
+// each side (pad may be 0, hop smaller or larger than frame_len).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,27 +65,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kFrames = 64;                // frames per block
-constexpr int kBins = 64;                  // bins per tile
-constexpr int kChunk = 16;                 // samples per staged chunk
-constexpr int kMels = 128;
-constexpr int kAStride = kFrames + 4;      // transposed frame chunk row
-constexpr int kPStride = kBins + 4;        // power tile row
-constexpr int kPerThread = kChunk * kFrames / kThreads;   // 4 staged values
-
-struct Shared {
-  float a[2][kChunk][kAStride];            // frames, sample-major
-  float br[2][kChunk][kBins];              // DFT re columns of the tile
-  float bi[2][kChunk][kBins];              // DFT im columns of the tile
-  float p[kFrames][kPStride];              // power of the tile
-};
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 w) {
-  acc[0] = fmaf(a, w.x, acc[0]);
-  acc[1] = fmaf(a, w.y, acc[1]);
-  acc[2] = fmaf(a, w.z, acc[2]);
-  acc[3] = fmaf(a, w.w, acc[3]);
-}
+constexpr int kPoints = 1024;              // complex points per block
+constexpr int kMaxFFT = 2048;
+constexpr int kMaxMels = 128;
+constexpr int kBlocksPerSM = 8;            // 32 registers a thread
 
 // log(mel + c) for the offset log, log(max(mel, c)) for the eps log
 __device__ __forceinline__ float take_log(float mel, int log_offset,
@@ -75,140 +76,168 @@ __device__ __forceinline__ float take_log(float mel, int log_offset,
   return logf(log_offset ? mel + log_const : fmaxf(mel, log_const));
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-log_mel_kernel(const float* __restrict__ y, float* __restrict__ out,
-               float* __restrict__ part, const float* __restrict__ dr,
-               const float* __restrict__ di, const float* __restrict__ mel,
-               int batch, int n_samples, int frame_len, int hop, int pad,
-               int n_frames, int K, int n_mels, int groups, int magnitude,
-               int log_offset, float log_const) {
-  __shared__ __align__(16) Shared sh;
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kFrames;
-  const int nf = min(kFrames, n_frames - t0);
-  const int tiles = (K + kBins - 1) / kBins;
-  const int tile_begin = blockIdx.z * tiles / groups;
-  const int tile_end = (blockIdx.z + 1) * tiles / groups;
-  const float* yb = y + (size_t)b * n_samples;
-  const long padded = (long)n_samples + 2L * pad;
-  const int chunks = frame_len / kChunk;
-
-  const int fg = tid / 16, bg = tid % 16;  // DFT micro-tile: 4 frames x 4 bins
-  const int mcol = tid % kMels;            // mel stage: one mel column
-  const int mhalf = tid / kMels;           //   x 32 frames
-  float macc[kFrames / 2];
-#pragma unroll
-  for (int i = 0; i < kFrames / 2; ++i) macc[i] = 0.f;
-
-  float sa[kPerThread], sr[kPerThread], si[kPerThread];
-  auto load_chunk = [&](int c, int b0) {
-    const int n0 = c * kChunk;
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int idx = tid + q * kThreads;
-      const int m = idx / kChunk, kk = idx % kChunk;
-      float v = 0.f;
-      long s = (long)(t0 + m) * hop + n0 + kk;   // index in padded signal
-      if (m < nf && s < padded) {
-        s -= pad;
-        if (s < 0) s = -s;
-        else if (s >= n_samples) s = 2L * (n_samples - 1) - s;
-        v = __ldg(yb + s);
-      }
-      sa[q] = v;
-      const int kr = idx / kBins, bin = b0 + idx % kBins;
-      const size_t o = (size_t)(n0 + kr) * K + bin;
-      sr[q] = bin < K ? __ldg(dr + o) : 0.f;
-      si[q] = bin < K ? __ldg(di + o) : 0.f;
-    }
-  };
-  auto store_chunk = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int idx = tid + q * kThreads;
-      sh.a[buf][idx % kChunk][idx / kChunk] = sa[q];
-      sh.br[buf][idx / kBins][idx % kBins] = sr[q];
-      sh.bi[buf][idx / kBins][idx % kBins] = si[q];
-    }
-  };
-
-  for (int tile = tile_begin; tile < tile_end; ++tile) {
-    const int b0 = tile * kBins;
-    float re[4][4], im[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) re[i][c] = im[i][c] = 0.f;
-
-    load_chunk(0, b0);
-    store_chunk(0);
-    __syncthreads();
-    for (int c = 0; c < chunks; ++c) {
-      const int buf = c & 1;
-      if (c + 1 < chunks) load_chunk(c + 1, b0);   // in flight meanwhile
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(sh.a[buf][k] + 4 * fg);
-        const float4 r =
-            *reinterpret_cast<const float4*>(sh.br[buf][k] + 4 * bg);
-        const float4 m =
-            *reinterpret_cast<const float4*>(sh.bi[buf][k] + 4 * bg);
-        fma4(re[0], a.x, r); fma4(im[0], a.x, m);
-        fma4(re[1], a.y, r); fma4(im[1], a.y, m);
-        fma4(re[2], a.z, r); fma4(im[2], a.z, m);
-        fma4(re[3], a.w, r); fma4(im[3], a.w, m);
-      }
-      if (c + 1 < chunks) store_chunk(buf ^ 1);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4 pw;
-      pw.x = re[i][0] * re[i][0] + im[i][0] * im[i][0];
-      pw.y = re[i][1] * re[i][1] + im[i][1] * im[i][1];
-      pw.z = re[i][2] * re[i][2] + im[i][2] * im[i][2];
-      pw.w = re[i][3] * re[i][3] + im[i][3] * im[i][3];
-      if (magnitude) {
-        pw.x = sqrtf(pw.x); pw.y = sqrtf(pw.y);
-        pw.z = sqrtf(pw.z); pw.w = sqrtf(pw.w);
-      }
-      *reinterpret_cast<float4*>(&sh.p[4 * fg + i][4 * bg]) = pw;
-    }
-    __syncthreads();
-    const int kn = min(kBins, K - b0);
-    for (int kk = 0; kk < kn; ++kk) {
-      const float w = mcol < n_mels
-          ? __ldg(mel + (size_t)(b0 + kk) * n_mels + mcol) : 0.f;
-#pragma unroll
-      for (int i = 0; i < kFrames / 2; ++i)
-        macc[i] = fmaf(sh.p[mhalf * (kFrames / 2) + i][kk], w, macc[i]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kFrames / 2; ++i) {
-    const int t = mhalf * (kFrames / 2) + i;
-    if (t >= nf || mcol >= n_mels) continue;
-    const size_t o = ((size_t)b * n_frames + t0 + t) * n_mels + mcol;
-    if (groups == 1)
-      out[o] = take_log(macc[i], log_offset, log_const);
-    else
-      part[(size_t)blockIdx.z * batch * n_frames * n_mels + o] = macc[i];
-  }
+// windowed sample n of the frame starting at s0 in the padded signal
+__device__ __forceinline__ float windowed(const float* __restrict__ yb,
+                                          const float* __restrict__ window,
+                                          long s0, int n, int frame_len,
+                                          long padded, int pad,
+                                          int n_samples) {
+  long s = s0 + n;
+  if (n >= frame_len || s >= padded) return 0.f;
+  s -= pad;
+  if (s < 0) s = -s;
+  else if (s >= n_samples) s = 2L * (n_samples - 1) - s;
+  return __ldg(yb + s) * __ldg(window + n);
 }
 
-// out = the log of the sum over groups of part
-__global__ void log_mel_finish(const float* __restrict__ part,
-                               float* __restrict__ out, size_t size,
-                               int groups, int log_offset, float log_const) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < size;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int g = 0; g < groups; ++g) s += part[(size_t)g * size + i];
-    out[i] = take_log(s, log_offset, log_const);
+// slot of complex point i in shared memory: a permutation inside each run
+// of 16 points that keeps the bit-reversed stores, the stages' loads and
+// stores and the split's reads free of bank conflicts
+__device__ __forceinline__ int sw(int i) {
+  return (i & ~15) | ((i ^ (i >> 2) ^ (i >> 6)) & 15);
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// power (or magnitude) of bin k from a = Z[k], c = Z[m - k] and w = W^k
+__device__ __forceinline__ float bin_power(float2 a, float2 c, float2 w,
+                                           int magnitude) {
+  const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
+  const float o_r = 0.5f * (a.y + c.y), o_i = -0.5f * (a.x - c.x);
+  const float xr = er + (w.x * o_r - w.y * o_i);
+  const float xi = ei + (w.x * o_i + w.y * o_r);
+  const float p = xr * xr + xi * xi;
+  return magnitude ? sqrtf(p) : p;
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
+                   const float* __restrict__ window,
+                   const float2* __restrict__ twiddle,
+                   const int* __restrict__ mel_bins,
+                   const float* __restrict__ mel_weights, int n_rows,
+                   int n_frames, int n_samples, int frame_len, int hop,
+                   int pad, int log2m, int n_mels, int magnitude,
+                   int log_offset, float log_const) {
+  __shared__ float2 z[kPoints];            // packed frames, then spectra
+  __shared__ float2 tw[kMaxFFT / 2];
+  __shared__ float pw[kPoints + kPoints / 2];   // fb * (m + 1) bins
+  const int tid = threadIdx.x;
+  const int m = 1 << log2m;                // complex points per frame
+  const int fb = kPoints >> log2m;         // frames per block
+  const int k_bins = m + 1;
+  const long padded = (long)n_samples + 2L * pad;
+  const int groups = (n_rows + fb - 1) / fb;
+
+  for (int i = tid; i < m; i += kThreads) tw[i] = twiddle[i];
+
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int row0 = g * fb;
+    // gather, window, pack even/odd samples as complex, bit-reversed
+    for (int i = tid; i < fb * m; i += kThreads) {
+      const int f = i >> log2m, p = i & (m - 1);
+      const int row = row0 + f;
+      float2 v = make_float2(0.f, 0.f);
+      if (row < n_rows) {
+        const int b = row / n_frames, t = row - b * n_frames;
+        const float* yb = y + (size_t)b * n_samples;
+        const long s0 = (long)t * hop;
+        const long st = s0 - pad;          // frame start in the signal
+        if (st >= 0 && st + frame_len <= n_samples && !(frame_len & 1) &&
+            !(reinterpret_cast<size_t>(yb + st) & 7)) {
+          // inside the signal, sample pairs 8-byte aligned: float2 loads
+          if (2 * p < frame_len) {
+            const float2 x = __ldg(reinterpret_cast<const float2*>(yb + st)
+                                   + p);
+            const float2 w = __ldg(reinterpret_cast<const float2*>(window)
+                                   + p);
+            v = make_float2(x.x * w.x, x.y * w.y);
+          }
+        } else {
+          v.x = windowed(yb, window, s0, 2 * p, frame_len, padded, pad,
+                         n_samples);
+          v.y = windowed(yb, window, s0, 2 * p + 1, frame_len, padded, pad,
+                         n_samples);
+        }
+      }
+      z[sw((f << log2m) + (__brev(p) >> (32 - log2m)))] = v;
+    }
+    __syncthreads();
+
+    // radix-2 decimation-in-time stages, half-size h = 2^s; stages s and
+    // s + 1 run as one pass over 4 points (the same operations in the
+    // same order), after a lone first stage when log2(m) is odd
+    int s = 0;
+    if (log2m & 1) {                       // stage 0 alone: h = 1, W^0
+      for (int i = tid; i < fb * m / 2; i += kThreads) {
+        const float2 a = z[sw(2 * i)];
+        const float2 c = cmul(z[sw(2 * i + 1)], tw[0]);
+        z[sw(2 * i)] = make_float2(a.x + c.x, a.y + c.y);
+        z[sw(2 * i + 1)] = make_float2(a.x - c.x, a.y - c.y);
+      }
+      __syncthreads();
+      s = 1;
+    }
+    for (; s < log2m; s += 2) {
+      const int h = 1 << s;
+      for (int i = tid; i < fb * m / 4; i += kThreads) {
+        const int f = i >> (log2m - 2), q = i & (m / 4 - 1);
+        const int j = q & (h - 1);
+        const int i0 = (f << log2m) + ((q >> s) << (s + 2)) + j;
+        const float2 w1 = tw[j << (log2m - s)];
+        const float2 w2 = tw[j << (log2m - s - 1)];
+        const float2 w3 = tw[(j + h) << (log2m - s - 1)];
+        const float2 a0 = z[sw(i0)];
+        const float2 a1 = cmul(z[sw(i0 + h)], w1);
+        const float2 a2 = z[sw(i0 + 2 * h)];
+        const float2 a3 = cmul(z[sw(i0 + 3 * h)], w1);
+        const float2 b0 = make_float2(a0.x + a1.x, a0.y + a1.y);
+        const float2 b1 = make_float2(a0.x - a1.x, a0.y - a1.y);
+        const float2 b2 = cmul(make_float2(a2.x + a3.x, a2.y + a3.y), w2);
+        const float2 b3 = cmul(make_float2(a2.x - a3.x, a2.y - a3.y), w3);
+        z[sw(i0)] = make_float2(b0.x + b2.x, b0.y + b2.y);
+        z[sw(i0 + 2 * h)] = make_float2(b0.x - b2.x, b0.y - b2.y);
+        z[sw(i0 + h)] = make_float2(b1.x + b3.x, b1.y + b3.y);
+        z[sw(i0 + 3 * h)] = make_float2(b1.x - b3.x, b1.y - b3.y);
+      }
+      __syncthreads();
+    }
+
+    // real-input split: X[k] = E[k] + W^k O[k], E = (Z[k] + conj Z[m-k]) / 2,
+    // O = (Z[k] - conj Z[m-k]) / 2i, indices mod m, W^m = -1; then power.
+    // A thread takes bins k and m - k, which read the same two points.
+    for (int i = tid; i < fb * (m / 2 + 1); i += kThreads) {
+      int f = i >> (log2m - 1);            // i / (m / 2 + 1) without a divide
+      while (f * (m / 2 + 1) > i) --f;
+      const int k = i - f * (m / 2 + 1);
+      const int zf = f << log2m;
+      const float2 a = z[sw(zf + (k & (m - 1)))];
+      const float2 c = z[sw(zf + ((m - k) & (m - 1)))];
+      float* pf = pw + f * k_bins;
+      pf[k] = bin_power(a, c, tw[k], magnitude);
+      if (k != m - k)
+        pf[m - k] = bin_power(c, a, k ? tw[m - k] : make_float2(-1.f, 0.f),
+                              magnitude);
+    }
+    __syncthreads();
+
+    // mel projection over each mel's nonzero bins, in bin order; log
+    for (int i = tid; i < fb * n_mels; i += kThreads) {
+      const int f = i / n_mels, mel = i - f * n_mels;
+      const int row = row0 + f;
+      if (row >= n_rows) continue;
+      const int first = __ldg(mel_bins + 3 * mel);
+      const int count = __ldg(mel_bins + 3 * mel + 1);
+      const float* wt = mel_weights + __ldg(mel_bins + 3 * mel + 2);
+      const float* pf = pw + f * k_bins + first;
+      float acc = 0.f;
+      for (int j = 0; j < count; ++j) acc = fmaf(pf[j], __ldg(wt + j), acc);
+      out[(size_t)row * n_mels + mel] = take_log(acc, log_offset, log_const);
+    }
+    // the next group's split writes pw only after its gather and stages,
+    // each followed by a barrier, so no barrier is needed here
   }
 }
 
@@ -216,36 +245,37 @@ __global__ void log_mel_finish(const float* __restrict__ part,
 
 extern "C" {
 
-// Bin-tile groups per (batch row, frame tile): enough blocks for two per SM.
-int a2m_log_mel_groups(int batch, int n_frames, int n_bins, int sms) {
-  const int tiles = (n_bins + kBins - 1) / kBins;
-  const int blocks = batch * ((n_frames + kFrames - 1) / kFrames);
-  const int g = blocks > 0 ? 2 * sms / blocks : 1;
-  return g < 1 ? 1 : (g > tiles ? tiles : g);
-}
-
-int a2m_log_mel(const void* y, void* out, void* part, const void* dr,
-                const void* di, const void* mel, int batch, int n_samples,
-                int frame_len, int hop, int pad, int n_frames, int n_bins,
-                int n_mels, int groups, int magnitude, int log_offset,
-                float log_const, void* stream) {
+int a2m_log_mel(const void* y, void* out, const void* window,
+                const void* twiddle, const void* mel_bins,
+                const void* mel_weights, int batch, int n_samples,
+                int frame_len, int hop, int pad, int n_frames, int n_fft,
+                int n_mels, int magnitude, int log_offset, float log_const,
+                void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
-  if (n_mels < 1 || n_mels > kMels || frame_len % kChunk != 0 || groups < 1)
+  if (n_fft < 4 || n_fft > kMaxFFT || (n_fft & (n_fft - 1)) ||
+      frame_len < 1 || frame_len > n_fft || n_mels < 1 ||
+      n_mels > kMaxMels || (long)batch * n_frames > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((n_frames + kFrames - 1) / kFrames, batch, groups);
-  log_mel_kernel<<<grid, kThreads, 0, s>>>(
-      (const float*)y, (float*)out, (float*)part, (const float*)dr,
-      (const float*)di, (const float*)mel, batch, n_samples, frame_len, hop,
-      pad, n_frames, n_bins, n_mels, groups, magnitude, log_offset,
-      log_const);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || groups == 1) return (int)err;
-  const size_t size = (size_t)batch * n_frames * n_mels;
-  const int blocks = (int)((size + kThreads - 1) / kThreads);
-  log_mel_finish<<<blocks, kThreads, 0, s>>>((const float*)part,
-                                              (float*)out, size, groups,
-                                              log_offset, log_const);
+  static int resident = 0;                 // blocks the card holds at once
+  if (!resident) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                  log_mel_fft_kernel,
+                                                  kThreads, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int log2m = __builtin_ctz(n_fft) - 1;
+  const int n_rows = batch * n_frames;
+  const int fb = kPoints >> log2m;
+  const int groups = (n_rows + fb - 1) / fb;
+  const int grid = groups < resident ? groups : resident;
+  log_mel_fft_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)y, (float*)out, (const float*)window,
+      (const float2*)twiddle, (const int*)mel_bins,
+      (const float*)mel_weights, n_rows, n_frames, n_samples, frame_len, hop,
+      pad, log2m, n_mels, magnitude, log_offset, log_const);
   return (int)cudaGetLastError();
 }
 

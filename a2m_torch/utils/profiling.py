@@ -37,7 +37,7 @@ CATEGORIES = (
                        'gcn_stack_kernel<true, true>')),
     ('gcn_stack_edge', ('gcn_stack_edge_kernel',)),
     ('gcn_stack', ('gcn_stack_kernel',)),
-    ('log_mel', ('log_mel_kernel', 'log_mel_finish')),
+    ('log_mel', ('log_mel_fft_kernel',)),
     ('convolution', ('conv', 'cudnn', 'implicit_gemm', 'fprop', 'dgrad',
                      'wgrad', 'winograd', 'fft')),
     ('gemm', ('gemm', 'cutlass', 'cublas')),

@@ -21,9 +21,11 @@ each fatal on failure:
    plain version on graphs away from LeakyReLU's kink, 1% and the mean rule
    with bf16 operands; two K4 runs on the same input are bit-equal; both
    timed beside their bounds;
-5. ``log_mel`` (K2) against its plain version at B = 128 on the pose-rate
-   strided spec (1e-4), timed beside ``torch.stft`` and the function's
-   bound, which counts an FFT (the kernel runs the direct DFT);
+5. ``log_mel`` (K2, an FFT) against its plain version (the direct DFT) on
+   the pose-rate strided spec at B = 128 and B = 1, 64 frames (1e-4; a
+   second launch bit-equal to the first), timed at B = 128 beside the
+   ``torch.stft`` route and the function's bound (a real FFT and the mel
+   over the filterbank's nonzeros: bytes-bound);
 6. the serving path: ``build_pipeline()`` with the committed flagship
    weights at B = 128, driven once with the launch counts set to 0 (1
    log-mel and 2 GCN-stack launches expected), then its realtime factor and
@@ -45,7 +47,9 @@ each fatal on failure:
    log-mel modes that serving adds to K2 against its plain version (1e-4):
    ``log_mel_512`` at B = 8, T = 891 and B = 1, ``log_mel_400`` and VGGish
    on 16 kHz (magnitude, 64 mels, uncentred frames of 512 and 400, htk
-   mels, offset log), and the framed entry bit-equal to the waveform entry;
+   mels, offset log), each also bit-equal on a second launch, and the
+   framed entry bit-equal to the waveform entry; K2 timed at B = 8,
+   T = 891 as in phase 5;
 9. the streaming server: ``build_server()`` (flagship generator, both GCN
    stacks on K5) on 8 seeded streams of 60 s at 45.6 kHz, driven once with
    the launch counts set to 0 (1 log-mel and 2 edge-form launches, no K1
@@ -100,11 +104,15 @@ def require(ok: bool, what: str) -> None:
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` in ms, by CUDA events over ``iters``
-    launches after ``warmup``."""
+    launches after ``warmup``.  A spin kernel of ~20 ms is queued ahead of
+    the first event, so the host has queued the launches before the card
+    reaches them: a kernel shorter than its launch's host work is timed
+    back to back, not at the host's pace."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -418,62 +426,116 @@ def gcn_train_phase() -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def log_mel_phase() -> dict:
+def mel_plain_args(spec, n_frames: int) -> tuple:
+    """The plain version's arguments after the waveform, on the card: the
+    window-folded DFT matrices and the dense mel matrix."""
     import torch
-    from a2m_torch.audio import frontend, mel_kernel
-    from a2m_torch.pipeline import CLIP_SECONDS, SR, pose_rate_spec
-
-    spec = pose_rate_spec()
-    batch, n_frames = 128, 64
-    gen = torch.Generator().manual_seed(1)
-    y = (torch.randn(batch, int(SR * CLIP_SECONDS), generator=gen)
-         * 0.1).cuda()
+    from a2m_torch.audio import frontend
     m = frontend.dft_matrices(spec)
     dr, di, mel = (torch.from_numpy(m[k]).cuda() for k in ('dr', 'di',
                                                           'mel'))
-    pad = spec.n_fft // 2
-    args = (dr, di, mel, spec.hop_length, pad, n_frames, spec.log_const)
-    got = mel_kernel.log_mel(y, *args)
-    ref = mel_kernel.log_mel_plain(y, *args)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    print(f'log_mel B={batch} T={n_frames}: max_abs_err={err:.3e} '
-          f'(tol 1e-4)', flush=True)
-    require(bool(torch.isfinite(got).all()), 'log_mel: non-finite output')
-    require(err <= 1e-4, f'log_mel: {err} > 1e-4')
+    pad = spec.n_fft // 2 if spec.center else 0
+    return (dr, di, mel, spec.hop_length, pad, n_frames, spec.log_const,
+            spec.power, spec.log_mode)
 
+
+def check_mel(tag: str, y, spec, n_frames: int, got):
+    """K2's output against its plain version (1e-4), its shape, finite
+    values, and a second launch on the same input bit-equal to it; returns
+    (max_abs_err, plain output in f32).
+
+    The plain version is evaluated in float64 on the same f32 samples and
+    tables for the gate: the kernel (an FFT) and the plain version in f32
+    (a direct DFT through cuBLAS) are two f32 algorithms, and on a frame
+    whose mel power lies far below the rest each one's rounding alone can
+    come near 1e-4.  The f32 plain version's own distance from the float64
+    one and the kernel's from it are printed beside the gate."""
+    import torch
+    from a2m_torch.audio import frontend, mel_kernel
+    args = mel_plain_args(spec, n_frames)
+    ref = mel_kernel.log_mel_plain(y, *args)
+    ref64 = mel_kernel.log_mel_plain(
+        y.double(), *(a.double() if torch.is_tensor(a) else a for a in args))
+    again = frontend.log_mel(y, spec, n_frames)
+    torch.cuda.synchronize()
+    err = (got.double() - ref64).abs().max().item()
+    err32 = (got - ref).abs().max().item()
+    plain_err = (ref.double() - ref64).abs().max().item()
+    same = torch.equal(got, again)
+    print(f'{tag}: max_abs_err={err:.3e} (tol 1e-4, vs the plain version '
+          f'in float64; vs it in f32 {err32:.3e}, which is itself '
+          f'{plain_err:.3e} from float64), rerun bit-equal: {same}',
+          flush=True)
+    require(tuple(got.shape) == (y.shape[0], n_frames, spec.n_mels)
+            and bool(torch.isfinite(got).all()),
+            f'{tag}: shape {tuple(got.shape)} or non-finite values')
+    require(err <= 1e-4, f'{tag}: {err} > 1e-4')
+    require(same, f'{tag}: two launches on one input differ')
+    return err, ref
+
+
+def time_mel(tag: str, y, spec, n_frames: int, ref) -> dict:
+    """K2, its plain version and the ``torch.stft`` route (the yardstick,
+    never called by the port) timed on one input, beside the function's
+    bound (log_mel_512 specs: a full-frame window, power, eps log)."""
+    import torch
+    from a2m_torch.audio import frontend, mel_kernel
+    args = mel_plain_args(spec, n_frames)
+    tables = frontend.mel_tables(spec, y.device)
     window = torch.hann_window(spec.n_fft, periodic=True, device='cuda')
+    mel = args[2]
 
     def library():
         s = torch.stft(y, spec.n_fft, hop_length=spec.hop_length,
                        window=window, center=True, pad_mode='reflect',
                        return_complex=True)
-        p = (s.real ** 2 + s.imag ** 2).transpose(1, 2)
+        p = (s.real ** 2 + s.imag ** 2).transpose(1, 2)[:, :n_frames]
         return torch.log(torch.clamp_min(p @ mel, spec.log_const))
 
     lib_err = (library() - ref).abs().max().item()
-    ms = cuda_ms(lambda: mel_kernel.log_mel(y, *args))
-    plain = cuda_ms(lambda: mel_kernel.log_mel_plain(y, *args))
-    lib_ms = cuda_ms(library)
-    # the function's bound counts an FFT; the kernel's direct DFT is a note
-    flops = mel_kernel.log_mel_flops(batch, n_frames, spec.n_fft, m['K'])
-    dft = mel_kernel.direct_dft_flops(batch, n_frames, m['frame_len'],
-                                      m['K'])
+    ms = cuda_ms(lambda: frontend.log_mel(y, spec, n_frames), iters=50)
+    plain = cuda_ms(lambda: mel_kernel.log_mel_plain(y, *args), iters=20)
+    lib_ms = cuda_ms(library, iters=50)
+    batch, n_fft = y.shape[0], spec.n_fft
+    nnz = tables.mel_weights.numel()
+    flops = mel_kernel.log_mel_flops(batch, n_frames, n_fft, nnz,
+                                     spec.n_mels)
+    run = mel_kernel.fft_kernel_flops(batch, n_frames, n_fft, nnz,
+                                      spec.n_mels)
     nbytes = mel_kernel.log_mel_bytes(batch, y.shape[1], n_frames,
-                                      m['frame_len'], spec.hop_length,
-                                      m['K'])
+                                      tables.frame_len, spec.hop_length,
+                                      n_fft, nnz, spec.n_mels)
     b_ms, b_by = bound(flops, nbytes, PEAK_FP32)
-    groups = mel_kernel.bin_groups(batch, n_frames, m['K'], y.device)
-    print(f'log_mel: kernel_ms={ms:.4f} plain_ms={plain:.4f} '
+    print(f'{tag}: kernel_ms={ms:.4f} plain_ms={plain:.4f} '
           f'library_ms={lib_ms:.4f} (torch.stft route, max_abs_err vs plain '
-          f'{lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}; '
-          f'{flops / 1e9:.3f} GFLOP by FFT, {nbytes / 1e6:.1f} MB); the '
-          f'direct DFT the kernel runs is {dft / 1e9:.2f} GFLOP, '
-          f'{dft / PEAK_FP32 * 1e3:.4f} ms at the fp32 rate; bin groups '
-          f'{groups}, so one launch is {1 + (groups > 1)} device kernel(s)',
-          flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+          f'{lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.3f} '
+          f'GFLOP by real FFT and the mel over its {nnz} nonzeros, '
+          f'{nbytes / 1e6:.1f} MB); the kernel runs {run / 1e9:.3f} GFLOP '
+          f'(complex FFT of n_fft/2 points and the split)', flush=True)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def log_mel_phase() -> dict:
+    """K2 at the one-window shapes: B = 128 and B = 1, 64 frames each."""
+    import torch
+    from a2m_torch.audio import frontend
+    from a2m_torch.pipeline import CLIP_SECONDS, SR, pose_rate_spec
+
+    spec = pose_rate_spec()
+    n_frames = 64
+    gen = torch.Generator().manual_seed(1)
+    y = (torch.randn(128, int(SR * CLIP_SECONDS), generator=gen)
+         * 0.1).cuda()
+    out = {}
+    for batch in (128, 1):
+        tag = f'log_mel B={batch} T={n_frames}'
+        got = frontend.log_mel(y[:batch], spec, n_frames)
+        err, ref = check_mel(tag, y[:batch], spec, n_frames, got)
+        if batch == 128:
+            out = dict(max_abs_err=err,
+                       **time_mel(tag, y, spec, n_frames, ref))
+    return out
 
 
 def stack_launches() -> dict:
@@ -799,7 +861,7 @@ def log_mel_modes_phase() -> dict:
     every frontend family at pose rate, small batches with many frames, and
     the framed entry."""
     import torch
-    from a2m_torch.audio import frontend, mel_kernel
+    from a2m_torch.audio import frontend
     from a2m_torch.eval import streaming
     from a2m_torch.pipeline import SR
 
@@ -816,65 +878,26 @@ def log_mel_modes_phase() -> dict:
                 else {'log_mel_400': frontend.spec_log_mel_400,
                       'vggish': frontend.spec_vggish}[method]())
         y = (torch.randn(batch, sr * seconds, generator=gen) * 0.1).cuda()
-        m = frontend.dft_matrices(spec)
-        dr, di, mel = (torch.from_numpy(m[k]).cuda()
-                       for k in ('dr', 'di', 'mel'))
+        frame_len = frontend.dft_matrices(spec)['frame_len']
         t = frontend.num_frames(spec, y.shape[1])
-        pad = spec.n_fft // 2 if spec.center else 0
-        args = (dr, di, mel, spec.hop_length, pad, t, spec.log_const,
-                spec.power, spec.log_mode)
-        got = frontend.log_mel(y, spec)
-        ref = mel_kernel.log_mel_plain(y, *args)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        groups = mel_kernel.bin_groups(batch, t, m['K'], y.device)
         tag = (f'log_mel {method} sr={sr} hop={spec.hop_length} frame_len='
-               f'{m["frame_len"]} B={batch} T={t} mels={spec.n_mels}')
-        print(f'{tag}: max_abs_err={err:.3e} (tol 1e-4), bin groups '
-              f'{groups}', flush=True)
-        require(tuple(got.shape) == (batch, t, spec.n_mels)
-                and bool(torch.isfinite(got).all()),
-                f'{tag}: shape {tuple(got.shape)} or non-finite values')
-        require(err <= 1e-4, f'{tag}: {err} > 1e-4')
+               f'{frame_len} B={batch} T={t} mels={spec.n_mels}')
+        got = frontend.log_mel(y, spec)
+        err, ref = check_mel(tag, y, spec, t, got)
         if not pose_rate:
             continue
         # the framed entry: the client's frames, the same kernel
         framed = torch.from_numpy(frontend.frame_for_wire(
             y.cpu().numpy(), spec)).cuda()
-        require(tuple(framed.shape) == (batch, t, m['frame_len']),
+        require(tuple(framed.shape) == (batch, t, frame_len),
                 f'{tag}: framed {tuple(framed.shape)}')
         same = torch.equal(frontend.log_mel_frames(framed, spec), got)
         print(f'{tag}: framed entry bit-equal to the waveform entry: {same}',
               flush=True)
         require(same, f'{tag}: framed entry differs from the waveform entry')
         if method == 'log_mel_512' and batch == SERVE_STREAMS:
-            ms = cuda_ms(lambda: mel_kernel.log_mel(y, *args))
-            plain = cuda_ms(lambda: mel_kernel.log_mel_plain(y, *args))
-            window = torch.hann_window(spec.n_fft, periodic=True,
-                                       device='cuda')
-
-            def library():
-                s = torch.stft(y, spec.n_fft, hop_length=spec.hop_length,
-                               window=window, center=True,
-                               pad_mode='reflect', return_complex=True)
-                p = (s.real ** 2 + s.imag ** 2).transpose(1, 2)
-                return torch.log(torch.clamp_min(p @ mel, spec.log_const))
-
-            lib_err = (library() - ref).abs().max().item()
-            lib_ms = cuda_ms(library)
-            flops = mel_kernel.log_mel_flops(batch, t, spec.n_fft, m['K'])
-            nbytes = mel_kernel.log_mel_bytes(batch, y.shape[1], t,
-                                              m['frame_len'],
-                                              spec.hop_length, m['K'])
-            b_ms, b_by = bound(flops, nbytes, PEAK_FP32)
-            print(f'{tag}: kernel_ms={ms:.4f} plain_ms={plain:.4f} '
-                  f'library_ms={lib_ms:.4f} (torch.stft route, max_abs_err '
-                  f'vs plain {lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}; '
-                  f'{flops / 1e9:.3f} GFLOP by FFT, {nbytes / 1e6:.1f} MB)',
-                  flush=True)
-            out = dict(batch=batch, n_frames=t, ms=ms, plain_ms=plain,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                       max_abs_err=err)
+            out = dict(batch=batch, n_frames=t, max_abs_err=err,
+                       **time_mel(tag, y, spec, t, ref))
     return out
 
 
