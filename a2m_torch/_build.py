@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / 'build' / 'a2m_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_double)
 #: C entry points of each source: name -> argtypes (all return an int error
 #: code, 0 on success; ``a2m_error_string`` names it)
 SIGNATURES = {
@@ -45,6 +46,8 @@ SIGNATURES = {
     'log_mel': {
         'a2m_log_mel': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _F, _P],
+        'a2m_log_mel_exact': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _D, _P],
     },
 }
 

@@ -1,21 +1,25 @@
-"""Log-mel frontend of the audio->pose and serving paths (fast mode).
+"""Log-mel frontend of the port: fast mode for serving, exact mode for
+feature extraction.
 
 Counterpart of ``a2m/audio/frontend.py``: the :class:`MelSpec` dataclass,
 the three spec families (``spec_log_mel_512``, ``spec_log_mel_400``,
 ``spec_vggish``, ``:58-77``), ``strided_spec`` (``:240-248``), the
-window-folded DFT and mel matrices (``dft_matrices``, ``:91-135``; the f32
-"hi" parts only), ``num_frames``, the centred reflect pad and integer-PCM
+window-folded DFT and mel matrices (``dft_matrices``, ``:91-135``),
+``num_frames``, the centred pad (reflect or constant) and integer-PCM
 scaling, :func:`log_mel` and :func:`log_mel_frames`, which run the fused
-log-mel kernel (:mod:`a2m_torch.audio.mel_kernel`) on CUDA, and the
-client-side :func:`frame_for_wire` (numpy).
+log-mel kernel (:mod:`a2m_torch.audio.mel_kernel`) on CUDA, the wrappers
+:func:`log_mel_512`, :func:`log_mel_400` and :func:`vggish_log_mel`
+(``:398-411``), and the client-side :func:`frame_for_wire` (numpy).
 
-On CUDA the kernel runs a real FFT (a2m's fast path takes the same
-function by a two-stage radix DFT, ``frontend.py:138-237``) and reads the
-tables of :func:`fft_tables`: the window, the twiddles and the filterbank
-over its nonzeros.  On the CPU the plain version runs the direct windowed
-DFT on :func:`dft_matrices`.  All agree to f32 rounding.  Exact mode
-(hi/lo split matrices, precise log), which only the data pipeline calls,
-and ``pad_mode='constant'`` are not ported yet.
+As in a2m, ``exact=True`` is the default: within 1e-5 of the float64
+golden (``mel_np``), for feature extraction; the serving paths pass
+``exact=False``.  On CUDA the kernel runs a real FFT (a2m's fast path
+takes the same function by a two-stage radix DFT, ``frontend.py:138-237``)
+and reads the tables of :func:`fft_tables`: the window, the twiddles and
+the filterbank over its nonzeros, in f32 (K2, fast mode) or float64 (K2x,
+exact mode; a2m's hi/lo split matrices and precise log need no counterpart
+there).  On the CPU the plain version runs the direct windowed DFT on
+:func:`dft_matrices`, in f32 or float64.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from a2m_torch.audio import mel_kernel, mel_np
 
@@ -82,17 +87,17 @@ def strided_spec(spec: MelSpec, stride: int) -> MelSpec:
 
 
 def _check_supported(spec: MelSpec) -> None:
-    """Raise for what the port's fast mode does not cover yet."""
+    """Raise for what the port's frontend does not cover."""
     if (spec.power not in (1.0, 2.0)
             or spec.log_mode not in ('eps', 'offset')
             or spec.frame_style not in ('librosa', 'vggish')
             or spec.mel_scale not in ('slaney', 'htk')
             or spec.n_mels > mel_kernel.MAX_MELS
-            or (spec.center and spec.pad_mode != 'reflect')):
+            or spec.pad_mode not in ('reflect', 'constant')):
         raise NotImplementedError(
             f'a2m_torch log_mel: power 1 or 2, eps or offset log, librosa '
             f'or vggish frames, at most {mel_kernel.MAX_MELS} mels and a '
-            f'reflect pad are supported, got {spec}')
+            f'reflect or constant pad are supported, got {spec}')
 
 
 def _window(spec: MelSpec) -> np.ndarray:
@@ -108,9 +113,11 @@ def _window(spec: MelSpec) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def dft_matrices(spec: MelSpec) -> dict:
+def dft_matrices(spec: MelSpec, exact: bool = False) -> dict:
     """Window-folded real/imag DFT matrices (frame_len, K) and the mel
-    matrix (K, n_mels), built in float64 and stored as float32.  The window
+    matrix (K, n_mels), built in float64 and stored as float32 (the f32
+    "hi" parts of a2m's, bit for bit), or kept in float64 when ``exact``
+    (what a2m's hi + lo pairs stand for).  The window
     sits centred inside the n_fft frame when win_length < n_fft (librosa);
     with VGGish framing the frame is win_length long and the matrices are
     the first win_length rows of the n_fft-point DFT, which absorbs the
@@ -129,11 +136,11 @@ def dft_matrices(spec: MelSpec) -> dict:
         mel = mel_np.mel_matrix_slaney(spec.n_mels, n_fft, spec.sr,
                                        fmin=spec.fmin, fmax=spec.fmax,
                                        norm=spec.mel_norm).T
-    f32 = np.float32
+    dtype = np.float64 if exact else np.float32
     return dict(frame_len=frame_len, K=k_bins,
-                dr=(np.cos(ang) * w_full[:, None]).astype(f32),
-                di=(np.sin(ang) * w_full[:, None]).astype(f32),
-                mel=np.ascontiguousarray(mel.astype(f32)))
+                dr=(np.cos(ang) * w_full[:, None]).astype(dtype),
+                di=(np.sin(ang) * w_full[:, None]).astype(dtype),
+                mel=np.ascontiguousarray(mel.astype(dtype)))
 
 
 def sparse_mel(mel: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -152,41 +159,43 @@ def sparse_mel(mel: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return bins, np.concatenate(weights)
 
 
-def twiddles(n_fft: int) -> np.ndarray:
-    """(n_fft // 2, 2) f32: ``exp(-2 pi i k / n_fft)`` as (re, im), built
-    in float64 and rounded once."""
+def twiddles(n_fft: int, dtype=np.float32) -> np.ndarray:
+    """(n_fft // 2, 2): ``exp(-2 pi i k / n_fft)`` as (re, im), built in
+    float64 and rounded once to ``dtype`` (or kept in float64)."""
     ang = -2.0 * np.pi * np.arange(n_fft // 2) / n_fft
-    return np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    return np.stack([np.cos(ang), np.sin(ang)], -1).astype(dtype)
 
 
 @functools.lru_cache(maxsize=16)
-def fft_tables(spec: MelSpec) -> dict:
+def fft_tables(spec: MelSpec, exact: bool = False) -> dict:
     """What the FFT kernel reads besides the waveform: the window as the
     frame of n_fft points sees it (centred inside n_fft for librosa frames;
     VGGish's frames of win_length are zero-padded to n_fft), the twiddles,
-    and the filterbank of :func:`dft_matrices` over its nonzeros."""
-    m = dft_matrices(spec)
+    and the filterbank of :func:`dft_matrices` over its nonzeros; f32, or
+    float64 when ``exact`` (never rounded through f32)."""
+    dtype = np.float64 if exact else np.float32
+    m = dft_matrices(spec, exact)
     bins, weights = sparse_mel(m['mel'])
-    return dict(frame_len=m['frame_len'],
-                window=_window(spec).astype(np.float32),
-                twiddle=twiddles(spec.n_fft), mel_bins=bins,
+    return dict(frame_len=m['frame_len'], window=_window(spec).astype(dtype),
+                twiddle=twiddles(spec.n_fft, dtype), mel_bins=bins,
                 mel_weights=weights)
 
 
-@functools.lru_cache(maxsize=8)
-def mel_tables(spec: MelSpec,
-               device: torch.device | str) -> mel_kernel.MelTables:
-    """The log-mel's tables on ``device``: the kernel's on every device,
-    and on the CPU also the plain version's dense matrices."""
+@functools.lru_cache(maxsize=16)
+def mel_tables(spec: MelSpec, device: torch.device | str,
+               exact: bool = False) -> mel_kernel.MelTables:
+    """The log-mel's tables on ``device``, f32 or (``exact``) float64: the
+    kernel's on every device, and on the CPU also the plain version's dense
+    matrices."""
     device = torch.device(device)
-    t = fft_tables(spec)
+    t = fft_tables(spec, exact)
 
     def put(a):
         return torch.from_numpy(a).to(device)
 
     dense = {}
     if device.type == 'cpu':
-        m = dft_matrices(spec)
+        m = dft_matrices(spec, exact)
         dense = {k: put(m[k]) for k in ('dr', 'di', 'mel')}
     return mel_kernel.MelTables(
         frame_len=t['frame_len'], window=put(t['window']),
@@ -209,19 +218,23 @@ def num_frames(spec: MelSpec, n_samples: int) -> int:
     return 1 + (n_samples - frame_len) // spec.hop_length
 
 
-def log_mel(y: torch.Tensor, spec: MelSpec,
+def log_mel(y: torch.Tensor, spec: MelSpec, exact: bool = True,
             n_frames: int | None = None) -> torch.Tensor:
-    """Fast-mode log-mel: (..., N) waveform (float or integer PCM) ->
-    (..., T, n_mels) float32, on ``y``'s device (the kernel on CUDA)."""
+    """Batched log-mel: (..., N) waveform (float or integer PCM) -> (...,
+    T, n_mels) float32, on ``y``'s device (the kernel on CUDA).
+    ``exact=True`` is within 1e-5 of the float64 golden (K2x, float64
+    arithmetic); ``exact=False`` is the single-f32 fast path (K2)."""
     _check_supported(spec)
     lead = y.shape[:-1]
     y = _pcm_to_float(y).reshape(-1, y.shape[-1])
     if n_frames is None:
         n_frames = num_frames(spec, y.shape[-1])
     pad = spec.n_fft // 2 if spec.center else 0
-    out = mel_kernel.log_mel(y, mel_tables(spec, y.device), spec.hop_length,
-                             pad, n_frames, spec.log_const, spec.power,
-                             spec.log_mode)
+    if pad and spec.pad_mode == 'constant':
+        y, pad = F.pad(y, (pad, pad)), 0
+    out = mel_kernel.log_mel(y, mel_tables(spec, y.device, exact),
+                             spec.hop_length, pad, n_frames, spec.log_const,
+                             spec.power, spec.log_mode)
     return out.reshape(*lead, n_frames, spec.n_mels)
 
 
@@ -244,7 +257,7 @@ def frame_for_wire(y: np.ndarray, spec: MelSpec,
     lead = [(0, 0)] * (y.ndim - 1)
     if spec.center:
         pad = spec.n_fft // 2
-        y = np.pad(y, lead + [(pad, pad)], mode='reflect')
+        y = np.pad(y, lead + [(pad, pad)], mode=spec.pad_mode)
     if n_frames is None:
         n_frames = 1 + (y.shape[-1] - frame_len) // hop
     needed = (n_frames - 1) * hop + frame_len
@@ -255,7 +268,8 @@ def frame_for_wire(y: np.ndarray, spec: MelSpec,
     return y[..., idx]
 
 
-def log_mel_frames(frames: torch.Tensor, spec: MelSpec) -> torch.Tensor:
+def log_mel_frames(frames: torch.Tensor, spec: MelSpec,
+                   exact: bool = True) -> torch.Tensor:
     """Framed-wire entry: (..., T, frame_len) sample frames (float or
     integer PCM, see :func:`frame_for_wire`) -> (..., T, n_mels) log-mel,
     identical to :func:`log_mel` on the waveform they were cut from."""
@@ -263,6 +277,25 @@ def log_mel_frames(frames: torch.Tensor, spec: MelSpec) -> torch.Tensor:
     lead, (t, frame_len) = frames.shape[:-2], frames.shape[-2:]
     out = mel_kernel.log_mel_framed(
         _pcm_to_float(frames).reshape(-1, t, frame_len),
-        mel_tables(spec, frames.device), spec.log_const, spec.power,
+        mel_tables(spec, frames.device, exact), spec.log_const, spec.power,
         spec.log_mode)
     return out.reshape(*lead, t, spec.n_mels)
+
+
+def log_mel_512(y: torch.Tensor, sr: int, exact: bool = True
+                ) -> torch.Tensor:
+    """librosa-parameterized log_mel_512 (reference audio.py:58-75) of a
+    waveform tensor, computed on its device."""
+    return log_mel(y, spec_log_mel_512(sr), exact=exact)
+
+
+def log_mel_400(y: torch.Tensor, exact: bool = True) -> torch.Tensor:
+    """log_mel_400 of a 16 kHz waveform tensor (resample on the host
+    first; reference audio.py:86-120)."""
+    return log_mel(y, spec_log_mel_400(), exact=exact)
+
+
+def vggish_log_mel(y: torch.Tensor, exact: bool = True) -> torch.Tensor:
+    """VGGish 64-bin log-mel of a 16 kHz waveform tensor (reference
+    mel_features.py:192-223)."""
+    return log_mel(y, spec_vggish(), exact=exact)

@@ -1,11 +1,14 @@
-"""Configuration of the port: the generator, the discriminator, the GAN
-controller and the train steps.
+"""Configuration of the port: audio extraction, data, the generator, the
+discriminator, the GAN controller and the train steps.
 
-Own copies of the dataclasses of ``a2m/config.py`` (``GeneratorConfig``
-``:73-107``, ``DiscriminatorConfig`` ``:111-130``, ``ControllerConfig``
-``:134-166``, and of ``TrainConfig`` ``:170-244`` the fields that the steps
-and the loop read), plus the GCN kernel switches (``fused_gcn``,
-``fused_edge``, ``fused_precise``).  The knobs that exist only for the TPU
+Own copies of the dataclasses of ``a2m/config.py`` (``AudioConfig`` and
+``DataConfig`` ``:17-70``, ``GeneratorConfig`` ``:73-107``,
+``DiscriminatorConfig`` ``:111-130``, ``ControllerConfig`` ``:134-166``,
+and of ``TrainConfig`` ``:170-244`` the fields that the steps and the loop
+read), plus the GCN kernel switches (``fused_gcn``, ``fused_edge``,
+``fused_precise``).  ``AudioConfig.use_pallas`` becomes ``device``: in the
+port the device alone picks the log-mel kernel (CUDA) or its plain version
+(CPU).  The knobs that exist only for the TPU
 (``remat``, ``rng_impl``, ``donate_buffers``, ``log_mfu``, ``fused_tile``:
 each kernel here picks its own tile) have no counterpart here.
 """
@@ -14,6 +17,50 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class AudioConfig:
+    """Audio frontend selection for data preparation."""
+    method: str = 'log_mel_512'     # 'log_mel_512' | 'log_mel_400' | 'vggish'
+    #: where the Audio modality extracts features: 'cuda' (the exact-mode
+    #: log-mel kernel, K2x) or 'cpu' (its float64 plain version)
+    device: str = 'cuda'
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    path2data: str = './pats/data'
+    speakers: tuple[str, ...] = ('oliver', 'noah', 'seth', 'shelly',
+                                 'ellen', 'angelica', 'almaram', 'chemistry')
+    modalities: tuple[str, ...] = ('pose/data', 'audio/log_mel_512')
+    fs_new: tuple[int, ...] = (15, 15)
+    batch_size: int = 128
+    window_hop: int = 5
+    window_seconds: float = 4.3
+    shuffle: bool = True
+    seed: int = 0
+    #: truncate each split to N intervals for quick runs (reference
+    #: dataUtils.py:231-237 ``load_data=False`` -> 5 intervals)
+    max_intervals_per_split: Optional[int] = None
+    style_iters: int = 0            # fixed-iteration alternating-style sampler
+    num_training_sample: Optional[int] = None  # few-shot subsample
+    quantile_sample: Optional[float] = None    # rebalance by velocity
+    quantile_num_training_sample: Optional[int] = None
+    weighted: int = 0               # weighted sampler draws per epoch
+    repeat_text: int = 1
+    filler: int = 0
+    #: multi-process data feeding: each process loads a balanced share of
+    #: the intervals (``parallel.mesh.balanced_host_slices``).  None = no
+    #: sharding; -1 = this process's torch.distributed rank / world size
+    process_index: Optional[int] = None
+    process_count: Optional[int] = None
+    #: bounded-RAM loading: shape metadata at startup, each window's rows
+    #: read from the h5 file at access time (off = reference parity)
+    lazy_intervals: bool = False
+    #: drift-free windowing: each output frame gathers its nearest source
+    #: row (``data.windowing.ExactWindowIndex``; off = reference parity)
+    exact_windows: bool = False
 
 
 @dataclass(frozen=True)
@@ -119,3 +166,10 @@ class TrainConfig:
     fused_gcn_eval: Optional[bool] = None
     #: global-norm gradient clipping; 0 disables
     grad_clip_norm: float = 0.0
+    #: batches staged on the device ahead of the step by a worker thread
+    #: (``Trainer._prefetch``); 0 stages each batch when it is consumed.
+    #: 0 by default, unlike a2m's 2: on an H100 a batch of 128 in-memory
+    #: windows stages in 3-4 ms beside ~390 ms of steps, and no run of
+    #: ``chip_smoke.py`` phase 10 showed the worker thread gaining.  A
+    #: loader whose batches are slow to draw (lazy h5 reads) sets it.
+    prefetch_batches: int = 0

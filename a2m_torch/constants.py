@@ -1,8 +1,8 @@
 """Skeleton and audio constants of the audio->pose path.
 
 The port's own copy of what it needs from ``a2m/constants.py`` (the port
-imports nothing of ``a2m``): the body/hand skeleton graphs
-(``a2m/constants.py:24-130``), the loss index tables (joint subset,
+imports nothing of ``a2m``): the body/hand skeleton graphs and the joint
+names (``a2m/constants.py:24-130``), the loss index tables (joint subset,
 angle triples, subset parents, ``:70-174``) and the pose-rate audio
 constants (``:179-190``).
 """
@@ -33,8 +33,29 @@ PARENTS: tuple[int, ...] = (
 )
 
 NUM_JOINTS = 52
+POSE_FEATS = 2 * NUM_JOINTS  # 104
+ROOT_JOINT = 0  # Neck
 NUM_BODY_JOINTS = 10   # Neck..LEye
 NUM_HAND_JOINTS = 42   # LHandRoot..RHandLittle4
+
+JOINT_NAMES: tuple[str, ...] = (
+    'Neck',
+    'RShoulder', 'RElbow', 'RWrist',
+    'LShoulder', 'LElbow', 'LWrist',
+    'Nose', 'REye', 'LEye',
+    'LHandRoot',
+    'LHandThumb1', 'LHandThumb2', 'LHandThumb3', 'LHandThumb4',
+    'LHandIndex1', 'LHandIndex2', 'LHandIndex3', 'LHandIndex4',
+    'LHandMiddle1', 'LHandMiddle2', 'LHandMiddle3', 'LHandMiddle4',
+    'LHandRing1', 'LHandRing2', 'LHandRing3', 'LHandRing4',
+    'LHandLittle1', 'LHandLittle2', 'LHandLittle3', 'LHandLittle4',
+    'RHandRoot',
+    'RHandThumb1', 'RHandThumb2', 'RHandThumb3', 'RHandThumb4',
+    'RHandIndex1', 'RHandIndex2', 'RHandIndex3', 'RHandIndex4',
+    'RHandMiddle1', 'RHandMiddle2', 'RHandMiddle3', 'RHandMiddle4',
+    'RHandRing1', 'RHandRing2', 'RHandRing3', 'RHandRing4',
+    'RHandLittle1', 'RHandLittle2', 'RHandLittle3', 'RHandLittle4',
+)
 
 #: joints relevant for losses and metrics: Nose(7), REye(8), LEye(9) dropped
 JOINT_SUBSET: np.ndarray = np.r_[range(7), range(10, NUM_JOINTS)]

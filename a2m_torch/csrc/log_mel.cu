@@ -1,7 +1,8 @@
-// Fused log-mel frontend by FFT, CUDA C++ for sm_90a.
+// Fused log-mel frontend by FFT, CUDA C++ for sm_90a, in two instantiations
+// of one kernel template: K2 computes in float, K2x in double.
 //
 // Replaces the Pallas TPU kernel a2m/audio/pallas_mel.py::_kernel (called by
-// pallas_log_mel), fast mode: framing of the waveform (centred and
+// pallas_log_mel) in both of its modes: framing of the waveform (centred and
 // reflect-padded, or as it is) -> window -> real DFT of n_fft points ->
 // power re^2 + im^2, or its square root (magnitude) -> mel projection ->
 // log(max(mel, c)) or log(mel + c).  The Pallas kernel runs the DFT as two
@@ -51,13 +52,33 @@
 // More stages a pass (8 points a thread), spreading a long mel over two
 // threads, and the FFT's work across the card at B = 1 are later work.
 //
-// Layout: y (B, n_samples) f32; window (n_fft,) f32, the window as the
-// frame of n_fft points sees it (zero outside it); twiddle (n_fft/2,) f32
-// complex pairs; mel_bins (n_mels, 3) int32: first bin, bin count, offset
-// into mel_weights (nnz,) f32; out (B, n_frames, n_mels) f32.  n_fft is a
-// power of two from 4 to 2048, frame_len <= n_fft, n_mels <= 128.  Frame t
-// starts at t * hop in the signal padded by `pad` samples of reflection on
-// each side (pad may be 0, hop smaller or larger than frame_len).
+// K2x, exact mode (a2m's exact=True, pallas_mel.py:96-125: hi/lo split f32
+// matrices at HIGHEST precision, precise_sqrt, precise_log, within 1e-5 of
+// the float64 golden) is the same kernel in double: samples are read as f32
+// and widened, the window, twiddles and mel weights are float64 tables
+// (never rounded through f32), and the packing, stages, split, power or
+// magnitude, mel and log run in double; only the output is rounded to f32.
+// No fast math: CUDA's double log and sqrt are within an ulp or two, so
+// a2m's precise_log/precise_sqrt have no counterpart.  The f32 FFT is
+// 2.2e-5 from float64 on a low-power mel, over the 1e-5 bound, and exact
+// mode serves offline feature extraction, where the fp64 rate costs little.
+// Bound on the H100 at 32 intervals of 60 s at 45.6 kHz (171,008 frames of
+// 2048): ~11.2 GFLOP by a real FFT, 0.33 ms at the 34 TFLOP/s fp64 rate,
+// against ~438 MB of samples and output (0.13 ms): bound by operations.
+// Shared memory is 44 KB a block (1024 double2 points, 1024 double2
+// twiddles, 1536 double bins), so 4 blocks an SM (64 registers a thread).
+// The swizzle is kept from K2: a permutation, right for any element size.
+//
+// Layout: y (B, n_samples) f32; window (n_fft,) T, the window as the frame
+// of n_fft points sees it (zero outside it); twiddle (n_fft/2,) T complex
+// pairs; mel_bins (n_mels, 3) int32: first bin, bin count, offset into
+// mel_weights (nnz,) T; out (B, n_frames, n_mels) f32; T is float for K2,
+// double for K2x.  n_fft is a power of two from 4 to 2048, frame_len <=
+// n_fft, n_mels <= 128.  Frame t starts at t * hop in the signal padded by
+// `pad` samples of reflection on each side (pad may be 0 or longer than the
+// signal, hop smaller or larger than frame_len).  The reflection is numpy's
+// mode='reflect': once the pad outgrows the signal it reflects again, with
+// period 2 (n - 1), and a signal of one sample repeats.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,62 +89,109 @@ constexpr int kThreads = 256;
 constexpr int kPoints = 1024;              // complex points per block
 constexpr int kMaxFFT = 2048;
 constexpr int kMaxMels = 128;
-constexpr int kBlocksPerSM = 8;            // 32 registers a thread
+
+// the compute type: its complex pair, its blocks an SM and its math
+template <typename T> struct Real;
+template <> struct Real<float> {
+  using T2 = float2;
+  static constexpr int kBlocksPerSM = 8;   // 32 registers a thread
+  __device__ static float log(float x) { return ::logf(x); }
+  __device__ static float sqrt(float x) { return ::sqrtf(x); }
+  __device__ static float fma(float a, float b, float c) {
+    return ::fmaf(a, b, c);
+  }
+  __device__ static float max(float a, float b) { return ::fmaxf(a, b); }
+};
+template <> struct Real<double> {
+  using T2 = double2;
+  static constexpr int kBlocksPerSM = 4;   // 64 registers; 44 KB of smem
+  __device__ static double log(double x) { return ::log(x); }
+  __device__ static double sqrt(double x) { return ::sqrt(x); }
+  __device__ static double fma(double a, double b, double c) {
+    return ::fma(a, b, c);
+  }
+  __device__ static double max(double a, double b) { return ::fmax(a, b); }
+};
 
 // log(mel + c) for the offset log, log(max(mel, c)) for the eps log
-__device__ __forceinline__ float take_log(float mel, int log_offset,
-                                          float log_const) {
-  return logf(log_offset ? mel + log_const : fmaxf(mel, log_const));
+template <typename T>
+__device__ __forceinline__ T take_log(T mel, int log_offset, T log_const) {
+  return Real<T>::log(log_offset ? mel + log_const
+                                 : Real<T>::max(mel, log_const));
+}
+
+// index in the signal of index s in its endless reflection (numpy's
+// mode='reflect'): reflect at either end until it lies inside.  Only the
+// frames at the ends of a signal shorter than the pad loop more than once;
+// a loop keeps K2 within its 32 registers, where a modulo spilled.
+__device__ __forceinline__ long reflect(long s, int n_samples) {
+  if (n_samples == 1) return 0;
+  while (s < 0 || s >= n_samples) s = s < 0 ? -s : 2L * (n_samples - 1) - s;
+  return s;
 }
 
 // windowed sample n of the frame starting at s0 in the padded signal
-__device__ __forceinline__ float windowed(const float* __restrict__ yb,
-                                          const float* __restrict__ window,
-                                          long s0, int n, int frame_len,
-                                          long padded, int pad,
-                                          int n_samples) {
+template <typename T>
+__device__ __forceinline__ T windowed(const float* __restrict__ yb,
+                                      const T* __restrict__ window, long s0,
+                                      int n, int frame_len, long padded,
+                                      int pad, int n_samples) {
   long s = s0 + n;
-  if (n >= frame_len || s >= padded) return 0.f;
+  if (n >= frame_len || s >= padded) return T(0);
   s -= pad;
-  if (s < 0) s = -s;
-  else if (s >= n_samples) s = 2L * (n_samples - 1) - s;
-  return __ldg(yb + s) * __ldg(window + n);
+  if (s < 0 || s >= n_samples) s = reflect(s, n_samples);
+  return (T)__ldg(yb + s) * __ldg(window + n);
 }
 
 // slot of complex point i in shared memory: a permutation inside each run
 // of 16 points that keeps the bit-reversed stores, the stages' loads and
-// stores and the split's reads free of bank conflicts
+// stores and the split's reads free of bank conflicts (for K2's 8-byte
+// points)
 __device__ __forceinline__ int sw(int i) {
   return (i & ~15) | ((i ^ (i >> 2) ^ (i >> 6)) & 15);
 }
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+template <typename T2>
+__device__ __forceinline__ T2 cmul(T2 a, T2 w) {
+  return T2{a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x};
+}
+
+template <typename T2>
+__device__ __forceinline__ T2 cadd(T2 a, T2 b) {
+  return T2{a.x + b.x, a.y + b.y};
+}
+
+template <typename T2>
+__device__ __forceinline__ T2 csub(T2 a, T2 b) {
+  return T2{a.x - b.x, a.y - b.y};
 }
 
 // power (or magnitude) of bin k from a = Z[k], c = Z[m - k] and w = W^k
-__device__ __forceinline__ float bin_power(float2 a, float2 c, float2 w,
-                                           int magnitude) {
-  const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
-  const float o_r = 0.5f * (a.y + c.y), o_i = -0.5f * (a.x - c.x);
-  const float xr = er + (w.x * o_r - w.y * o_i);
-  const float xi = ei + (w.x * o_i + w.y * o_r);
-  const float p = xr * xr + xi * xi;
-  return magnitude ? sqrtf(p) : p;
+template <typename T, typename T2>
+__device__ __forceinline__ T bin_power(T2 a, T2 c, T2 w, int magnitude) {
+  const T half = T(0.5);
+  const T er = half * (a.x + c.x), ei = half * (a.y - c.y);
+  const T o_r = half * (a.y + c.y), o_i = -half * (a.x - c.x);
+  const T xr = er + (w.x * o_r - w.y * o_i);
+  const T xi = ei + (w.x * o_i + w.y * o_r);
+  const T p = xr * xr + xi * xi;
+  return magnitude ? Real<T>::sqrt(p) : p;
 }
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Real<T>::kBlocksPerSM)
 log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
-                   const float* __restrict__ window,
-                   const float2* __restrict__ twiddle,
+                   const T* __restrict__ window,
+                   const typename Real<T>::T2* __restrict__ twiddle,
                    const int* __restrict__ mel_bins,
-                   const float* __restrict__ mel_weights, int n_rows,
+                   const T* __restrict__ mel_weights, int n_rows,
                    int n_frames, int n_samples, int frame_len, int hop,
                    int pad, int log2m, int n_mels, int magnitude,
-                   int log_offset, float log_const) {
-  __shared__ float2 z[kPoints];            // packed frames, then spectra
-  __shared__ float2 tw[kMaxFFT / 2];
-  __shared__ float pw[kPoints + kPoints / 2];   // fb * (m + 1) bins
+                   int log_offset, T log_const) {
+  using T2 = typename Real<T>::T2;
+  __shared__ T2 z[kPoints];                // packed frames, then spectra
+  __shared__ T2 tw[kMaxFFT / 2];
+  __shared__ T pw[kPoints + kPoints / 2];  // fb * (m + 1) bins
   const int tid = threadIdx.x;
   const int m = 1 << log2m;                // complex points per frame
   const int fb = kPoints >> log2m;         // frames per block
@@ -139,7 +207,7 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
     for (int i = tid; i < fb * m; i += kThreads) {
       const int f = i >> log2m, p = i & (m - 1);
       const int row = row0 + f;
-      float2 v = make_float2(0.f, 0.f);
+      T2 v{T(0), T(0)};
       if (row < n_rows) {
         const int b = row / n_frames, t = row - b * n_frames;
         const float* yb = y + (size_t)b * n_samples;
@@ -151,9 +219,8 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
           if (2 * p < frame_len) {
             const float2 x = __ldg(reinterpret_cast<const float2*>(yb + st)
                                    + p);
-            const float2 w = __ldg(reinterpret_cast<const float2*>(window)
-                                   + p);
-            v = make_float2(x.x * w.x, x.y * w.y);
+            const T2 w = __ldg(reinterpret_cast<const T2*>(window) + p);
+            v = T2{(T)x.x * w.x, (T)x.y * w.y};
           }
         } else {
           v.x = windowed(yb, window, s0, 2 * p, frame_len, padded, pad,
@@ -172,10 +239,10 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
     int s = 0;
     if (log2m & 1) {                       // stage 0 alone: h = 1, W^0
       for (int i = tid; i < fb * m / 2; i += kThreads) {
-        const float2 a = z[sw(2 * i)];
-        const float2 c = cmul(z[sw(2 * i + 1)], tw[0]);
-        z[sw(2 * i)] = make_float2(a.x + c.x, a.y + c.y);
-        z[sw(2 * i + 1)] = make_float2(a.x - c.x, a.y - c.y);
+        const T2 a = z[sw(2 * i)];
+        const T2 c = cmul(z[sw(2 * i + 1)], tw[0]);
+        z[sw(2 * i)] = cadd(a, c);
+        z[sw(2 * i + 1)] = csub(a, c);
       }
       __syncthreads();
       s = 1;
@@ -186,21 +253,21 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
         const int f = i >> (log2m - 2), q = i & (m / 4 - 1);
         const int j = q & (h - 1);
         const int i0 = (f << log2m) + ((q >> s) << (s + 2)) + j;
-        const float2 w1 = tw[j << (log2m - s)];
-        const float2 w2 = tw[j << (log2m - s - 1)];
-        const float2 w3 = tw[(j + h) << (log2m - s - 1)];
-        const float2 a0 = z[sw(i0)];
-        const float2 a1 = cmul(z[sw(i0 + h)], w1);
-        const float2 a2 = z[sw(i0 + 2 * h)];
-        const float2 a3 = cmul(z[sw(i0 + 3 * h)], w1);
-        const float2 b0 = make_float2(a0.x + a1.x, a0.y + a1.y);
-        const float2 b1 = make_float2(a0.x - a1.x, a0.y - a1.y);
-        const float2 b2 = cmul(make_float2(a2.x + a3.x, a2.y + a3.y), w2);
-        const float2 b3 = cmul(make_float2(a2.x - a3.x, a2.y - a3.y), w3);
-        z[sw(i0)] = make_float2(b0.x + b2.x, b0.y + b2.y);
-        z[sw(i0 + 2 * h)] = make_float2(b0.x - b2.x, b0.y - b2.y);
-        z[sw(i0 + h)] = make_float2(b1.x + b3.x, b1.y + b3.y);
-        z[sw(i0 + 3 * h)] = make_float2(b1.x - b3.x, b1.y - b3.y);
+        const T2 w1 = tw[j << (log2m - s)];
+        const T2 w2 = tw[j << (log2m - s - 1)];
+        const T2 w3 = tw[(j + h) << (log2m - s - 1)];
+        const T2 a0 = z[sw(i0)];
+        const T2 a1 = cmul(z[sw(i0 + h)], w1);
+        const T2 a2 = z[sw(i0 + 2 * h)];
+        const T2 a3 = cmul(z[sw(i0 + 3 * h)], w1);
+        const T2 b0 = cadd(a0, a1);
+        const T2 b1 = csub(a0, a1);
+        const T2 b2 = cmul(cadd(a2, a3), w2);
+        const T2 b3 = cmul(csub(a2, a3), w3);
+        z[sw(i0)] = cadd(b0, b2);
+        z[sw(i0 + 2 * h)] = csub(b0, b2);
+        z[sw(i0 + h)] = cadd(b1, b3);
+        z[sw(i0 + 3 * h)] = csub(b1, b3);
       }
       __syncthreads();
     }
@@ -213,13 +280,13 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
       while (f * (m / 2 + 1) > i) --f;
       const int k = i - f * (m / 2 + 1);
       const int zf = f << log2m;
-      const float2 a = z[sw(zf + (k & (m - 1)))];
-      const float2 c = z[sw(zf + ((m - k) & (m - 1)))];
-      float* pf = pw + f * k_bins;
-      pf[k] = bin_power(a, c, tw[k], magnitude);
+      const T2 a = z[sw(zf + (k & (m - 1)))];
+      const T2 c = z[sw(zf + ((m - k) & (m - 1)))];
+      T* pf = pw + f * k_bins;
+      pf[k] = bin_power<T>(a, c, tw[k], magnitude);
       if (k != m - k)
-        pf[m - k] = bin_power(c, a, k ? tw[m - k] : make_float2(-1.f, 0.f),
-                              magnitude);
+        pf[m - k] = bin_power<T>(c, a, k ? tw[m - k] : T2{T(-1), T(0)},
+                                 magnitude);
     }
     __syncthreads();
 
@@ -230,31 +297,30 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
       if (row >= n_rows) continue;
       const int first = __ldg(mel_bins + 3 * mel);
       const int count = __ldg(mel_bins + 3 * mel + 1);
-      const float* wt = mel_weights + __ldg(mel_bins + 3 * mel + 2);
-      const float* pf = pw + f * k_bins + first;
-      float acc = 0.f;
-      for (int j = 0; j < count; ++j) acc = fmaf(pf[j], __ldg(wt + j), acc);
-      out[(size_t)row * n_mels + mel] = take_log(acc, log_offset, log_const);
+      const T* wt = mel_weights + __ldg(mel_bins + 3 * mel + 2);
+      const T* pf = pw + f * k_bins + first;
+      T acc = T(0);
+      for (int j = 0; j < count; ++j)
+        acc = Real<T>::fma(pf[j], __ldg(wt + j), acc);
+      out[(size_t)row * n_mels + mel] =
+          (float)take_log<T>(acc, log_offset, log_const);
     }
     // the next group's split writes pw only after its gather and stages,
     // each followed by a barrier, so no barrier is needed here
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-int a2m_log_mel(const void* y, void* out, const void* window,
-                const void* twiddle, const void* mel_bins,
-                const void* mel_weights, int batch, int n_samples,
-                int frame_len, int hop, int pad, int n_frames, int n_fft,
-                int n_mels, int magnitude, int log_offset, float log_const,
-                void* stream) {
+template <typename T>
+int launch(const void* y, void* out, const void* window, const void* twiddle,
+           const void* mel_bins, const void* mel_weights, int batch,
+           int n_samples, int frame_len, int hop, int pad, int n_frames,
+           int n_fft, int n_mels, int magnitude, int log_offset, T log_const,
+           void* stream) {
   if (batch <= 0 || n_frames <= 0) return 0;
   if (n_fft < 4 || n_fft > kMaxFFT || (n_fft & (n_fft - 1)) ||
       frame_len < 1 || frame_len > n_fft || n_mels < 1 ||
-      n_mels > kMaxMels || (long)batch * n_frames > 0x7fffffffL)
+      n_mels > kMaxMels || n_samples < 1 || pad < 0 ||
+      (long)batch * n_frames > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
   static int resident = 0;                 // blocks the card holds at once
   if (!resident) {
@@ -262,7 +328,7 @@ int a2m_log_mel(const void* y, void* out, const void* window,
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
-                                                  log_mel_fft_kernel,
+                                                  log_mel_fft_kernel<T>,
                                                   kThreads, 0);
     resident = sms * (per_sm > 0 ? per_sm : 1);
   }
@@ -271,12 +337,41 @@ int a2m_log_mel(const void* y, void* out, const void* window,
   const int fb = kPoints >> log2m;
   const int groups = (n_rows + fb - 1) / fb;
   const int grid = groups < resident ? groups : resident;
-  log_mel_fft_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)y, (float*)out, (const float*)window,
-      (const float2*)twiddle, (const int*)mel_bins,
-      (const float*)mel_weights, n_rows, n_frames, n_samples, frame_len, hop,
+  log_mel_fft_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)y, (float*)out, (const T*)window,
+      (const typename Real<T>::T2*)twiddle, (const int*)mel_bins,
+      (const T*)mel_weights, n_rows, n_frames, n_samples, frame_len, hop,
       pad, log2m, n_mels, magnitude, log_offset, log_const);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2: f32 tables, f32 arithmetic
+int a2m_log_mel(const void* y, void* out, const void* window,
+                const void* twiddle, const void* mel_bins,
+                const void* mel_weights, int batch, int n_samples,
+                int frame_len, int hop, int pad, int n_frames, int n_fft,
+                int n_mels, int magnitude, int log_offset, float log_const,
+                void* stream) {
+  return launch<float>(y, out, window, twiddle, mel_bins, mel_weights, batch,
+                       n_samples, frame_len, hop, pad, n_frames, n_fft,
+                       n_mels, magnitude, log_offset, log_const, stream);
+}
+
+// K2x: float64 tables, double arithmetic, f32 samples in and f32 out
+int a2m_log_mel_exact(const void* y, void* out, const void* window,
+                      const void* twiddle, const void* mel_bins,
+                      const void* mel_weights, int batch, int n_samples,
+                      int frame_len, int hop, int pad, int n_frames,
+                      int n_fft, int n_mels, int magnitude, int log_offset,
+                      double log_const, void* stream) {
+  return launch<double>(y, out, window, twiddle, mel_bins, mel_weights,
+                        batch, n_samples, frame_len, hop, pad, n_frames,
+                        n_fft, n_mels, magnitude, log_offset, log_const,
+                        stream);
 }
 
 const char* a2m_error_string(int code) {

@@ -166,7 +166,8 @@ def _waveform_features(waveform, sr: int, method: str = 'log_mel_512',
     ``device``."""
     with torch.inference_mode():
         y = _as_tensor(waveform).to(device)
-        return frontend.log_mel(y, _pose_rate_spec(sr, method)).cpu().numpy()
+        return frontend.log_mel(y, _pose_rate_spec(sr, method),
+                                exact=False).cpu().numpy()
 
 
 def _waveform_features_grouped(waveforms, sr: int,
@@ -185,7 +186,7 @@ def _waveform_features_grouped(waveforms, sr: int,
     with torch.inference_mode():
         outs = [(idxs, frontend.log_mel(
             torch.stack([_as_tensor(waveforms[i]) for i in idxs]).to(device),
-            spec)) for idxs in groups.values()]
+            spec, exact=False)) for idxs in groups.values()]
         for idxs, out in outs:               # d2h after all launches
             out = out.cpu().numpy()
             for j, i in enumerate(idxs):
@@ -311,9 +312,9 @@ def _fused_pipeline(generator, sr: int, method: str, n_samples: int,
                         f'framed wire: {waves.shape[-2]} frames per stream, '
                         f'but {n_samples} samples give {t} (framed_n_samples '
                         f'must be the original per-stream sample count)')
-                feats = frontend.log_mel_frames(waves, spec)
+                feats = frontend.log_mel_frames(waves, spec, exact=False)
             else:
-                feats = frontend.log_mel(waves, spec)    # (S, T, n_mels)
+                feats = frontend.log_mel(waves, spec, exact=False)
             wins = feats[:, idx]                     # (S, W, window, n_mels)
             s, w_n = wins.shape[:2]
             pred = generator(wins.reshape(s * w_n, window, feats.shape[-1]))

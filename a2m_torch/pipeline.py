@@ -13,7 +13,8 @@ streams of any length, f32 / int16 / mu-law / client-framed wires).
 
 :func:`build_trainer` is the training entry point: the flagship generator
 with its GCN stacks on the fused kernels and a default discriminator under
-:class:`a2m_torch.train.loop.Trainer`.
+:class:`a2m_torch.train.loop.Trainer`, fed by a data loader (``loader`` or
+``path2data``) or by batches the caller sets.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; they raise when CUDA is absent.  Building a pipeline on CUDA turns
@@ -24,15 +25,17 @@ f32 convolutions in TF32, about three decimal digits.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from a2m_torch.audio import frontend
-from a2m_torch.config import (DiscriminatorConfig, GeneratorConfig,
-                              TrainConfig)
+from a2m_torch.config import (AudioConfig, DataConfig, DiscriminatorConfig,
+                              GeneratorConfig, TrainConfig)
 from a2m_torch.constants import AUDIO_FS_MAP, FRAMES_PER_WINDOW
+from a2m_torch.device import resolve_device
 from a2m_torch.models.discriminator import Discriminator
 from a2m_torch.models.generator import Generator
 from a2m_torch.weights import from_jax_variables, load_generator_npz
@@ -41,19 +44,6 @@ SR = 45600            # nominal PATS sample rate
 CLIP_SECONDS = 4.3
 FLAGSHIP_NPZ = Path(__file__).resolve().parents[1] / 'artifacts' / \
     'flagship_best_gen.npz'
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for CUDA when it is absent, and
-    turns TF32 off for CUDA (see the module docstring)."""
-    dev = torch.device(device)
-    if dev.type == 'cuda':
-        if not torch.cuda.is_available():
-            raise RuntimeError('a2m_torch: CUDA is not available; pass '
-                               'device="cpu" to run the port on the CPU')
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dev
 
 
 def pose_rate_spec() -> frontend.MelSpec:
@@ -83,7 +73,8 @@ def audio_to_pose_fn(model: Generator, device):
     def audio_to_pose(waveform) -> torch.Tensor:
         with torch.inference_mode():
             y = torch.as_tensor(waveform).to(dev)
-            feats = frontend.log_mel(y, spec, n_frames=FRAMES_PER_WINDOW)
+            feats = frontend.log_mel(y, spec, exact=False,
+                                     n_frames=FRAMES_PER_WINDOW)
             return model(feats)
 
     return audio_to_pose
@@ -136,27 +127,44 @@ def build_server(npz=None, device='cuda', fused_edge: bool = True,
 
 def build_trainer(npz=None, batch: int = 128, device='cuda', seed: int = 0,
                   config: GeneratorConfig = GeneratorConfig(fused_gcn=True),
-                  log=print):
+                  log=print, loader=None, path2data=None,
+                  speaker='oliver', data: DataConfig = DataConfig()):
     """A :class:`~a2m_torch.train.loop.Trainer` around the flagship
     generator (weights from a packed ``.npz``, default the committed
     flagship; GCN stacks on the fused kernels: the stash-forward and
     backward kernels in ``g_step``, the forward kernel in ``d_step`` and
-    ``eval_step``), a default discriminator initialised from ``seed``, and
-    the ``.npz``'s pose statistics, under the default ``TrainConfig``.  The
-    caller sets ``trainer.train_batches`` and ``trainer.dev_batches``.
-    ``batch`` sizes one warm-up ``eval_step`` on zeros after the CUDA
-    kernels are built; 0 skips it."""
+    ``eval_step``) and a default discriminator initialised from ``seed``,
+    under the default ``TrainConfig``.
+
+    The data: ``loader``, any object with ``.train`` and ``.dev`` iterables
+    of a2m's dict batches (the port's ``DataLoader``, or a ``Batcher`` over
+    any dataset of dicts); or ``path2data``, a PATS-layout tree read by the
+    port's ``DataLoader`` (``loader_from_config`` on ``data`` with
+    ``speaker``; needs ``h5py`` and ``pandas``).  Either way the trainer
+    takes the loader's batches and normalises poses by the neck-subtracted
+    moments of its train set.  With neither, the caller sets
+    ``trainer.train_batches`` and ``trainer.dev_batches``, and the
+    ``.npz``'s pose statistics normalise.  ``batch`` sizes one warm-up
+    ``eval_step`` on zeros after the CUDA kernels are built; 0 skips it."""
     from a2m_torch.train.loop import Trainer
     dev = resolve_device(device)
+    if path2data is not None:
+        from a2m_torch.data.dataset import loader_from_config
+        speakers = (speaker,) if isinstance(speaker, str) else tuple(speaker)
+        loader = loader_from_config(
+            dataclasses.replace(data, path2data=str(path2data),
+                                speakers=speakers),
+            AudioConfig(device=str(dev)))
     g_model = Generator(config)
     flat, stats = load_generator_npz(FLAGSHIP_NPZ if npz is None else npz)
     g_model.load_state_dict(from_jax_variables(flat, g_model))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         d_model = Discriminator(DiscriminatorConfig())
+    mean, std = ((None, None) if loader is not None
+                 else (stats.get('mean'), stats.get('std')))
     trainer = Trainer(g_model.to(dev), d_model.to(dev), TrainConfig(),
-                      mean=stats.get('mean'), std=stats.get('std'),
-                      seed=seed, log=log)
+                      mean=mean, std=std, seed=seed, log=log, loader=loader)
     if dev.type == 'cuda':
         from a2m_torch import _build
         _build.build(('gcn_stack', 'gcn_stack_bwd'))

@@ -58,7 +58,24 @@ each fatal on failure:
    operands against the fused call; a2m's JAX output in
    ``a2m_torch/testdata/streaming_golden.npz``; wall per call and realtime
    factor for 8 streams and for one, with the upload and with the input
-   already on the card.
+   already on the card;
+10. the data path: K2x (the exact-mode log-mel, ``log_mel.cu`` in double)
+   against its plain version evaluated in float64 (1e-5) on one and 32
+   intervals of 60 s at 45.6 kHz (``log_mel_512``), 60 s at 16 kHz
+   (``log_mel_400``) and waveforms of 1, 2, 500 and 1,024 samples (K2 on
+   these too, at 1e-4), each with a bit-equal rerun, the distance to the
+   port's float64 ``mel_np`` golden printed beside it, and K2x timed at 32
+   intervals beside its bound (fp64 operations against bytes) and the
+   float64 ``torch.stft`` route; then 16 seeded intervals of 60 s written as
+   wav files and read back through ``audio.io.wav_to_features`` (log-mel 512
+   on all, log-mel 400 with the kaiser_best resample on two), driven with
+   the counts set to 0 (K2x once per file, K2 never) and held to the plain
+   version; then those features, paired with ``synthetic.synth_pose``
+   tracks and cut by ``windowing.window_index``, as a ``Batcher`` of B = 128
+   (14 intervals to train, 2 to validate) into ``build_trainer(loader=...)``:
+   one ``train_epoch`` of 4 batches and ``validate`` on 2 (K3/K4 x2 per G
+   step, K1 x2 per D and eval step, K2/K2x x0), and ms per batch with
+   ``prefetch_batches`` 0 and 2.  Phases 6 and 9 also assert K2x x0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -77,6 +94,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 PEAK_BF16 = 989e12                # dense tensor-core bf16 FLOP/s
 PEAK_FP32 = 67e12                 # fp32 outside the tensor cores
+PEAK_FP64 = 67e12                 # fp64 on the tensor cores (DMMA)
 # bf16-operand K1: mean |kernel - plain bf16| as a share of the mean
 # bf16-vs-f32 gap of the plain version
 BF16_MEAN_SHARE = 0.01
@@ -95,6 +113,10 @@ GRAD_L2_TOL = 1e-2
 # the serving configuration: concurrent streams, their length, and the
 # windows each gives at 15 pose frames per second (hop 32, window 64)
 SERVE_STREAMS, SERVE_SECONDS, SERVE_WINDOWS = 8, 60, 27
+# the data path: intervals of feature extraction and their length; K2x's
+# tolerance against its float64 plain version (a2m's exact-mode bound
+# against the float64 golden, tests/test_audio_frontend.py:16)
+DATA_INTERVALS, DATA_SECONDS, EXACT_TOL = 16, 60, 1e-5
 
 
 def require(ok: bool, what: str) -> None:
@@ -426,12 +448,13 @@ def gcn_train_phase() -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def mel_plain_args(spec, n_frames: int) -> tuple:
+def mel_plain_args(spec, n_frames: int, exact: bool = False) -> tuple:
     """The plain version's arguments after the waveform, on the card: the
-    window-folded DFT matrices and the dense mel matrix."""
+    window-folded DFT matrices and the dense mel matrix, f32 or (exact)
+    float64."""
     import torch
     from a2m_torch.audio import frontend
-    m = frontend.dft_matrices(spec)
+    m = frontend.dft_matrices(spec, exact)
     dr, di, mel = (torch.from_numpy(m[k]).cuda() for k in ('dr', 'di',
                                                           'mel'))
     pad = spec.n_fft // 2 if spec.center else 0
@@ -456,7 +479,7 @@ def check_mel(tag: str, y, spec, n_frames: int, got):
     ref = mel_kernel.log_mel_plain(y, *args)
     ref64 = mel_kernel.log_mel_plain(
         y.double(), *(a.double() if torch.is_tensor(a) else a for a in args))
-    again = frontend.log_mel(y, spec, n_frames)
+    again = frontend.log_mel(y, spec, False, n_frames)
     torch.cuda.synchronize()
     err = (got.double() - ref64).abs().max().item()
     err32 = (got - ref).abs().max().item()
@@ -493,7 +516,8 @@ def time_mel(tag: str, y, spec, n_frames: int, ref) -> dict:
         return torch.log(torch.clamp_min(p @ mel, spec.log_const))
 
     lib_err = (library() - ref).abs().max().item()
-    ms = cuda_ms(lambda: frontend.log_mel(y, spec, n_frames), iters=50)
+    ms = cuda_ms(lambda: frontend.log_mel(y, spec, False, n_frames),
+                 iters=50)
     plain = cuda_ms(lambda: mel_kernel.log_mel_plain(y, *args), iters=20)
     lib_ms = cuda_ms(library, iters=50)
     batch, n_fft = y.shape[0], spec.n_fft
@@ -530,7 +554,7 @@ def log_mel_phase() -> dict:
     out = {}
     for batch in (128, 1):
         tag = f'log_mel B={batch} T={n_frames}'
-        got = frontend.log_mel(y[:batch], spec, n_frames)
+        got = frontend.log_mel(y[:batch], spec, False, n_frames)
         err, ref = check_mel(tag, y[:batch], spec, n_frames, got)
         if batch == 128:
             out = dict(max_abs_err=err,
@@ -882,7 +906,7 @@ def log_mel_modes_phase() -> dict:
         t = frontend.num_frames(spec, y.shape[1])
         tag = (f'log_mel {method} sr={sr} hop={spec.hop_length} frame_len='
                f'{frame_len} B={batch} T={t} mels={spec.n_mels}')
-        got = frontend.log_mel(y, spec)
+        got = frontend.log_mel(y, spec, exact=False)
         err, ref = check_mel(tag, y, spec, t, got)
         if not pose_rate:
             continue
@@ -891,7 +915,8 @@ def log_mel_modes_phase() -> dict:
             y.cpu().numpy(), spec)).cuda()
         require(tuple(framed.shape) == (batch, t, frame_len),
                 f'{tag}: framed {tuple(framed.shape)}')
-        same = torch.equal(frontend.log_mel_frames(framed, spec), got)
+        same = torch.equal(
+            frontend.log_mel_frames(framed, spec, exact=False), got)
         print(f'{tag}: framed entry bit-equal to the waveform entry: {same}',
               flush=True)
         require(same, f'{tag}: framed entry differs from the waveform entry')
@@ -922,11 +947,15 @@ def serve_phase(smi: str) -> dict:
 
     reset_stack_launches()
     mel_kernel.log_mel.launches = 0
+    mel_kernel.log_mel.exact_launches = 0
     poses = serve(waves)
-    launches = {'log_mel': mel_kernel.log_mel.launches, **stack_launches()}
+    launches = {'log_mel': mel_kernel.log_mel.launches,
+                'log_mel_exact': mel_kernel.log_mel.exact_launches,
+                **stack_launches()}
     print(f'serve: launches in one fused call of {SERVE_STREAMS} x '
           f'{SERVE_SECONDS} s {launches}', flush=True)
-    require(launches == {'log_mel': 1, 'gcn_stack_edge': 2, 'gcn_stack': 0,
+    require(launches == {'log_mel': 1, 'log_mel_exact': 0,
+                         'gcn_stack_edge': 2, 'gcn_stack': 0,
                          'gcn_stack_fwd': 0, 'gcn_stack_bwd': 0},
             f'serving launches {launches}, expected log_mel 1, '
             f'gcn_stack_edge 2 and no other')
@@ -1057,13 +1086,16 @@ def slice_phase() -> dict:
 
     gcn_kernel.gcn_stack.launches = 0
     mel_kernel.log_mel.launches = 0
+    mel_kernel.log_mel.exact_launches = 0
     pose = audio_to_pose(wave)
     torch.cuda.synchronize()
     launches = {'gcn_stack': gcn_kernel.gcn_stack.launches,
-                'log_mel': mel_kernel.log_mel.launches}
+                'log_mel': mel_kernel.log_mel.launches,
+                'log_mel_exact': mel_kernel.log_mel.exact_launches}
     print(f'slice: launches in one call {launches}', flush=True)
-    require(launches == {'gcn_stack': 2, 'log_mel': 1},
-            f'main path launches {launches}, expected gcn_stack 2, log_mel 1')
+    require(launches == {'gcn_stack': 2, 'log_mel': 1, 'log_mel_exact': 0},
+            f'main path launches {launches}, expected gcn_stack 2, log_mel '
+            f'1, log_mel_exact 0')
     require(tuple(pose.shape) == (batch, 64, 104), f'pose {pose.shape}')
     require(bool(torch.isfinite(pose).all()), 'pose: non-finite values')
 
@@ -1091,7 +1123,8 @@ def slice_phase() -> dict:
     rng = np.random.default_rng(int(golden['seed']))
     wave2 = torch.as_tensor((rng.standard_normal((2, int(SR * CLIP_SECONDS)))
                              * 0.1).astype(np.float32)).cuda()
-    mel = frontend.log_mel(wave2, pose_rate_spec(), n_frames=64)
+    mel = frontend.log_mel(wave2, pose_rate_spec(), exact=False,
+                           n_frames=64)
     mel_err = float(np.abs(mel.cpu().numpy() - golden['log_mel']).max())
     scale = float(np.abs(golden['pose']).max())
     precise = load_generator(config=GeneratorConfig(
@@ -1110,6 +1143,348 @@ def slice_phase() -> dict:
     return dict(launches=launches, realtime_factor=rt, p50_ms=p50,
                 ms_per_call=dt * 1e3, batch=batch, golden_log_mel_err=mel_err,
                 golden_pose_rel_err=errs)
+
+
+def check_exact(tag: str, y, spec, got, golden=None) -> float:
+    """K2x's output against its plain version evaluated in float64
+    (EXACT_TOL), its shape, finite values and a second launch bit-equal to
+    it; ``golden(y0)`` (the float64 ``mel_np`` reference of row 0, as
+    (T, n_mels)) is printed beside the gate.  Returns the max abs error."""
+    import numpy as np
+    import torch
+    from a2m_torch.audio import frontend, mel_kernel
+    t = got.shape[1]
+    ref = mel_kernel.log_mel_plain(y.double(),
+                                   *mel_plain_args(spec, t, exact=True))
+    again = frontend.log_mel(y, spec, True, t)
+    torch.cuda.synchronize()
+    err = (got.double() - ref).abs().max().item()
+    same = torch.equal(got, again)
+    gold = ''
+    if golden is not None:
+        # within 120 dB of the peak mel, as a2m's tonal test holds it
+        # (tests/test_audio_frontend.py:129-140): below that the golden's
+        # log of a power that only rounding left (not clamped unless it is
+        # exactly 0) has no meaning
+        g = golden(y[0].double().cpu().numpy())
+        live = np.exp(g) > 1e-6 * np.exp(g).max()
+        gold = (f', row 0 vs the float64 mel_np golden '
+                f'{abs(got[0].double().cpu().numpy() - g)[live].max():.3e} '
+                f'over the {live.mean():.1%} of its mels within 120 dB of '
+                f'the peak')
+    print(f'{tag}: K2x max_abs_err={err:.3e} (tol {EXACT_TOL:g}, vs the '
+          f'plain version in float64){gold}, rerun bit-equal: {same}',
+          flush=True)
+    require(tuple(got.shape) == (y.shape[0], t, spec.n_mels)
+            and got.dtype == torch.float32
+            and bool(torch.isfinite(got).all()),
+            f'{tag}: shape {tuple(got.shape)} or non-finite values')
+    require(err <= EXACT_TOL, f'{tag}: K2x {err} > {EXACT_TOL}')
+    require(same, f'{tag}: two K2x launches on one input differ')
+    return err
+
+
+def time_mel_exact(tag: str, y, spec) -> dict:
+    """K2x, its plain version (the direct DFT in float64) and the float64
+    ``torch.stft`` route (the yardstick, never called by the port) timed on
+    one input, beside the function's bound at the fp64 rate."""
+    import torch
+    from a2m_torch.audio import frontend, mel_kernel
+    t = frontend.num_frames(spec, y.shape[1])
+    args = mel_plain_args(spec, t, exact=True)
+    tables = frontend.mel_tables(spec, y.device, True)
+    window = torch.hann_window(spec.n_fft, periodic=True,
+                               dtype=torch.float64, device='cuda')
+    mel = args[2]
+
+    def library():
+        s = torch.stft(y.double(), spec.n_fft, hop_length=spec.hop_length,
+                       window=window, center=True, pad_mode='reflect',
+                       return_complex=True)
+        p = (s.real ** 2 + s.imag ** 2).transpose(1, 2)[:, :t]
+        return torch.log(torch.clamp_min(p @ mel, spec.log_const)).float()
+
+    got = frontend.log_mel(y, spec, True, t)
+    lib_err = (library() - got).abs().max().item()
+    ms = cuda_ms(lambda: frontend.log_mel(y, spec, True, t), iters=10)
+    plain = cuda_ms(lambda: mel_kernel.log_mel_plain(y.double(), *args),
+                    iters=3, warmup=1)
+    lib_ms = cuda_ms(library, iters=5, warmup=1)
+    batch, n_fft = y.shape[0], spec.n_fft
+    nnz = tables.mel_weights.numel()
+    flops = mel_kernel.log_mel_flops(batch, t, n_fft, nnz, spec.n_mels)
+    nbytes = mel_kernel.log_mel_bytes(batch, y.shape[1], t,
+                                      tables.frame_len, spec.hop_length,
+                                      n_fft, nnz, spec.n_mels, table_bytes=8)
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP64)
+    print(f'{tag}: K2x kernel_ms={ms:.4f} plain_ms={plain:.4f} '
+          f'library_ms={lib_ms:.4f} (float64 torch.stft route, max_abs_err '
+          f'vs K2x {lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}; '
+          f'{flops / 1e9:.3f} GFLOP by real FFT and the mel over its {nnz} '
+          f'nonzeros at fp64 {PEAK_FP64 / 1e12:g} TFLOP/s, '
+          f'{nbytes / 1e6:.1f} MB)', flush=True)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, batch=batch, n_frames=t)
+
+
+def exact_kernel_cases() -> dict:
+    """K2x against its plain version at the data path's shapes and on a
+    tonal clip (K2's distance there beside it), and K2 and K2x on waveforms
+    shorter than the centred pad."""
+    import torch
+    from a2m_torch.audio import frontend, mel_kernel, mel_np
+    from a2m_torch.pipeline import SR, pose_rate_spec
+
+    gen = torch.Generator().manual_seed(9)
+    spec512, spec400 = frontend.spec_log_mel_512(SR), \
+        frontend.spec_log_mel_400()
+    golden512 = lambda y0: mel_np.log_mel_512(y0, SR)  # noqa: E731
+    golden400 = lambda y0: mel_np.log_mel_400(y0, 16000)  # noqa: E731
+    errs = []
+    y = (torch.randn(32, SR * DATA_SECONDS, generator=gen) * 0.1).cuda()
+    tag = f'log_mel_512 B=1 {DATA_SECONDS} s'
+    got = frontend.log_mel(y[:1], spec512, True)
+    errs.append(check_exact(tag, y[:1], spec512, got, golden512))
+    tag = f'log_mel_512 B=32 {DATA_SECONDS} s'
+    got = frontend.log_mel(y, spec512, True)
+    errs.append(check_exact(tag, y, spec512, got, golden512))
+    timed = time_mel_exact(tag, y, spec512)
+    del y, got
+    # a2m's tonal clip (tests/test_audio_frontend.py:129-140) at four
+    # pitches: most of its mels lie far below the peak, where an f32 FFT
+    # misses 1e-5, so K2's distance on the same input shows that the gate
+    # tells K2x from an f32 kernel
+    t = torch.arange(SR * DATA_SECONDS, dtype=torch.float64) / SR
+    env = 1 + 0.5 * torch.sin(2 * torch.pi * 3 * t)
+    tones = torch.stack([0.3 * torch.sin(2 * torch.pi * f * t) * env
+                         for f in (220, 440, 880, 1760)]).float().cuda()
+    tag = f'log_mel_512 tonal B=4 {DATA_SECONDS} s'
+    got = frontend.log_mel(tones, spec512, True)
+    errs.append(check_exact(tag, tones, spec512, got, golden512))
+    ref = mel_kernel.log_mel_plain(
+        tones.double(), *mel_plain_args(spec512, got.shape[1], exact=True))
+    fast = frontend.log_mel(tones, spec512, False)
+    tonal_k2 = (fast.double() - ref).abs().max().item()
+    print(f'{tag}: K2 (f32) on the same input max_abs_err={tonal_k2:.3e} '
+          f'vs the same float64 plain version (K2x {errs[-1]:.3e}, tol '
+          f'{EXACT_TOL:g})', flush=True)
+    del tones, got, ref, fast
+    y16 = (torch.randn(1, 16000 * DATA_SECONDS, generator=gen) * 0.1).cuda()
+    got = frontend.log_mel(y16, spec400, True)
+    errs.append(check_exact(f'log_mel_400 B=1 {DATA_SECONDS} s', y16,
+                            spec400, got, golden400))
+    # shorter than the centred pad (1024 samples): the reflection folds
+    short_fast = []
+    for n in (1, 2, 500, 1024):
+        y = (torch.randn(2, n, generator=gen) * 0.1).cuda()
+        for name, spec in (('log_mel_512', spec512),
+                           ('pose-rate', pose_rate_spec())):
+            stride = spec.hop_length // 512
+            tag = f'{name} n={n}'
+            got = frontend.log_mel(y, spec, True)
+            errs.append(check_exact(
+                tag, y, spec, got,
+                lambda y0: mel_np.log_mel_512(y0, SR)[::stride]))
+            got = frontend.log_mel(y, spec, False)
+            short_fast.append(check_mel(f'{tag} K2', y, spec, got.shape[1],
+                                        got)[0])
+    return dict(max_abs_err=max(errs), short_k2_max_abs_err=max(short_fast),
+                tonal_k2_max_abs_err=tonal_k2, **timed)
+
+
+def extraction_phase() -> tuple[list, dict]:
+    """``wav_to_features`` on DATA_INTERVALS seeded wav files of
+    DATA_SECONDS at 45.6 kHz (log-mel 512) and on two of them (log-mel 400,
+    kaiser_best resample to 16 kHz), with the counts set to 0: K2x once per
+    call, K2 never; each result against the plain version in float64."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from a2m_torch.audio import frontend, mel_kernel
+    from a2m_torch.audio import io as audio_io
+    from a2m_torch.pipeline import SR
+
+    rng = np.random.default_rng(10)
+    n = SR * DATA_SECONDS
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp, \
+            ThreadPoolExecutor(2) as pool:
+        paths = [Path(tmp) / f'interval{i:02d}.wav'
+                 for i in range(DATA_INTERVALS)]
+        for path in paths:
+            audio_io.save_wav(path, rng.standard_normal(n) * 0.1, SR)
+
+        def at_16k(path):                  # the log-mel 400 check's input
+            y, sr = audio_io.load_wav(path)
+            return audio_io.resample(y, sr, 16000).astype(np.float32)
+
+        y16_jobs = [pool.submit(at_16k, path) for path in paths[:2]]
+        mel_kernel.log_mel.launches = 0
+        mel_kernel.log_mel.exact_launches = 0
+        t0 = time.perf_counter()
+        feats = [audio_io.wav_to_features(path, 'log_mel_512',
+                                          device='cuda') for path in paths]
+        s512 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        feats400 = [audio_io.wav_to_features(path, 'log_mel_400',
+                                             device='cuda')
+                    for path in paths[:2]]
+        s400 = time.perf_counter() - t0
+        launches = {'log_mel': mel_kernel.log_mel.launches,
+                    'log_mel_exact': mel_kernel.log_mel.exact_launches}
+        print(f'data: wav_to_features launches {launches}; log_mel_512 '
+              f'{s512 / DATA_INTERVALS * 1e3:.1f} ms per {DATA_SECONDS} s '
+              f'file, log_mel_400 {s400 / 2 * 1e3:.1f} ms (kaiser_best '
+              f'resample on the host included), host clock', flush=True)
+        require(launches == {'log_mel': 0,
+                             'log_mel_exact': DATA_INTERVALS + 2},
+                f'extraction launches {launches}, expected log_mel_exact '
+                f'{DATA_INTERVALS + 2} and log_mel 0')
+        errs = []
+        for spec, got, ys in (
+                (frontend.spec_log_mel_512(SR), feats,
+                 [audio_io.load_wav(p)[0].astype(np.float32)
+                  for p in paths]),
+                (frontend.spec_log_mel_400(), feats400,
+                 [job.result() for job in y16_jobs])):
+            for f, y in zip(got, ys):
+                t = frontend.num_frames(spec, y.shape[-1])
+                ref = mel_kernel.log_mel_plain(
+                    torch.from_numpy(y)[None].cuda().double(),
+                    *mel_plain_args(spec, t, exact=True))[0].cpu().numpy()
+                require(f.shape == ref.shape and f.dtype == np.float32
+                        and np.isfinite(f).all(),
+                        f'features {f.shape} {f.dtype} or non-finite')
+                errs.append(float(np.abs(f - ref).max()))
+    print(f'data: features vs the plain version in float64: max_abs_err '
+          f'{max(errs):.3e} over {len(errs)} files (tol {EXACT_TOL:g})',
+          flush=True)
+    require(max(errs) <= EXACT_TOL, f'extracted features {max(errs)}')
+    return feats, dict(launches=launches, max_abs_err=max(errs),
+                       ms_per_file_512=s512 / DATA_INTERVALS * 1e3,
+                       ms_per_file_400=s400 / 2 * 1e3)
+
+
+def data_train_phase(feats: list) -> dict:
+    """The extracted features, paired with synthetic pose tracks and cut
+    into windows as the data loader cuts them, as a ``Batcher`` into
+    ``build_trainer(loader=...)``: one epoch of 4 batches, a validation on
+    2, the launch counts, and ms per batch with and without prefetch."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from a2m_torch.audio import mel_kernel
+    from a2m_torch.constants import AUDIO_FS_MAP, POSE_FPS
+    from a2m_torch.data.dataset import Batcher, RandomSampler
+    from a2m_torch.data.synthetic import synth_pose
+    from a2m_torch.data.windowing import window_index
+    from a2m_torch.pipeline import build_trainer
+
+    rng = np.random.default_rng(11)
+    fs = AUDIO_FS_MAP['log_mel_512']
+    items = []
+    for f in feats:
+        pose = synth_pose(POSE_FPS * DATA_SECONDS, rng).astype(np.float32)
+        wa = window_index(len(f), fs, 15, 4.3, window_hop=5)
+        wp = window_index(len(pose), POSE_FPS, 15, 4.3, window_hop=5)
+        items.append([{'audio/log_mel_512': wa.slice(f, k),
+                       'pose/data': wp.slice(pose, k),
+                       'style': np.zeros(wp.out_len, np.float32)}
+                      for k in range(min(len(wa), len(wp)))])
+    train = [it for interval in items[:-2] for it in interval]
+    dev = [it for interval in items[-2:] for it in interval]
+    loader = SimpleNamespace(
+        train=Batcher(train, 128, sampler=RandomSampler(len(train), seed=0),
+                      max_batches=4),
+        dev=Batcher(dev, 128, max_batches=2))
+    t0 = time.perf_counter()
+    trainer = build_trainer(batch=128, loader=loader, log=lambda line: print(
+        f'data: {line}', flush=True))
+    print(f'data: build_trainer(loader=...) over {len(train)} train and '
+          f'{len(dev)} dev windows {time.perf_counter() - t0:.2f} s '
+          f'(moments of the train set included)', flush=True)
+    require(trainer._style_ids(next(iter(loader.dev))) is None,
+            'style ids under the flagship config')
+    require(bool(torch.isfinite(trainer.mean).all()
+                 and (trainer.std > 0).all()), 'pose moments')
+
+    def run(epoch: int, depth: int) -> tuple[dict, float, tuple]:
+        trainer.cfg = dataclasses.replace(trainer.cfg,
+                                          prefetch_batches=depth)
+        reset_stack_launches()
+        mel_kernel.log_mel.launches = 0
+        mel_kernel.log_mel.exact_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.train_epoch(epoch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / len(loader.train) * 1e3
+        counts = {'log_mel': mel_kernel.log_mel.launches,
+                  'log_mel_exact': mel_kernel.log_mel.exact_launches,
+                  **stack_launches()}
+        return counts, ms, losses
+
+    counts, ms2, (last_g, last_d) = run(0, 2)
+    reset_stack_launches()
+    val = trainer.validate()
+    val_counts = stack_launches()
+    g_steps = counts['gcn_stack_fwd'] // 2
+    print(f'data: train_epoch(0) over {len(loader.train)} batches, launches '
+          f'{counts}, last g_loss {last_g:.4f} d_loss {last_d:.4f}; '
+          f'validate launches {val_counts} ' + ' '.join(
+              f'{k}={v:.4f}' for k, v in val.items()), flush=True)
+    require(g_steps == 3 * len(loader.train)
+            and counts['gcn_stack_bwd'] == counts['gcn_stack_fwd'],
+            f'epoch launches {counts}: expected K3 and K4 x2 per G step, 3 '
+            f'G steps a batch')
+    require(0 < counts['gcn_stack'] <= 2 * len(loader.train)
+            and counts['gcn_stack'] % 2 == 0,
+            f'epoch launches {counts}: expected K1 x2 per D step')
+    require(counts['log_mel'] == counts['log_mel_exact'] == 0
+            and counts['gcn_stack_edge'] == 0,
+            f'epoch launches {counts}: no log-mel or K5 launch expected')
+    require(val_counts['gcn_stack'] == 2 * len(loader.dev)
+            and val_counts['gcn_stack_fwd'] == 0,
+            f'validate launches {val_counts}: expected K1 x2 per batch')
+    for v in (last_g, last_d, *val.values()):
+        require(v == v and abs(v) != float('inf'), 'data: non-finite loss')
+    ms_per_batch = {}
+    for epoch, depth in ((1, 0), (2, 2), (3, 0), (4, 2)):
+        c, ms, _ = run(epoch, depth)
+        ms_per_batch[f'epoch{epoch}_prefetch{depth}'] = ms
+        ms_per_batch[f'epoch{epoch}_g_steps'] = c['gcn_stack_fwd'] // 2
+        ms_per_batch[f'epoch{epoch}_d_steps'] = c['gcn_stack'] // 2
+    # what the prefetch can hide at most: drawing a batch from the Batcher
+    # and staging it on the card, alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in loader.train:
+        trainer._stage(batch)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) / len(loader.train) * 1e3
+    print('data: ms per batch (host clock, synchronised at the epoch\'s '
+          'ends) prefetch 2: ' f'{ms2:.2f} (epoch 0), then ' + ' '.join(
+              f'{k}={v:.2f}' if isinstance(v, float) else f'{k}={v}'
+              for k, v in ms_per_batch.items())
+          + f'; drawing and staging one batch alone {stage_ms:.2f} ms',
+          flush=True)
+    return dict(launches=counts, validate_launches=val_counts,
+                train_windows=len(train), dev_windows=len(dev),
+                ms_per_batch_epoch0_prefetch2=ms2, **ms_per_batch,
+                stage_ms_per_batch=stage_ms, validate=val)
+
+
+def data_phase() -> dict:
+    """Phase 10: K2x's cases, extraction through the entry points, training
+    over the extracted features."""
+    k2x = exact_kernel_cases()
+    feats, extraction = extraction_phase()
+    train = data_train_phase(feats)
+    return dict(k2x=k2x, extraction=extraction, train=train)
 
 
 def main() -> int:
@@ -1145,6 +1520,8 @@ def main() -> int:
     print(json.dumps({'log_mel_serving': mel_serving, 'device': smi}))
     sv = serve_phase(smi)
     print(json.dumps({'serve': sv, 'device': smi}))
+    data = data_phase()
+    print(json.dumps({'data': data, 'device': smi}))
     stack = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='gcn_stack', source='a2m_torch/csrc/gcn_stack.cu',
@@ -1166,6 +1543,13 @@ def main() -> int:
              source='a2m_torch/csrc/gcn_stack_edge.cu',
              replaces='a2m/nn/pallas_gcn.py:879',
              launches=sv['launches']['gcn_stack_edge'], **stack, **edge),
+        dict(name='log_mel_exact', route='cuda',
+             source='a2m_torch/csrc/log_mel.cu',
+             replaces='a2m/audio/pallas_mel.py:96',
+             launches=data['extraction']['launches']['log_mel_exact'],
+             max_abs_err=data['k2x']['max_abs_err'],
+             **{k: data['k2x'][k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                            'bound_by', 'library_ms')}),
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -75,7 +75,7 @@ def test_golden_file_matches_jax(golden):
 @pytest.fixture(scope='module')
 def port_mel(golden):
     wave = torch.from_numpy(golden_waveform(int(golden['seed'])))
-    return frontend.log_mel(wave, pose_rate_spec(), n_frames=64)
+    return frontend.log_mel(wave, pose_rate_spec(), exact=False, n_frames=64)
 
 
 def test_port_log_mel_matches_golden(golden, port_mel):

@@ -1,5 +1,7 @@
 """a2m_torch stands alone: it imports with ``jax`` blocked, loads no a2m
-module, and its CUDA entry points raise when CUDA is absent."""
+module, and its CUDA entry points raise when CUDA is absent; every module
+also imports with ``jax``, ``h5py`` and ``pandas`` all blocked, as on a
+machine with the card, which has neither of the last two."""
 
 import os
 import subprocess
@@ -9,7 +11,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = r'''
-import importlib, pkgutil, sys
+import importlib, pkgutil, sys, tempfile
 sys.modules['jax'] = None            # any "import jax" now raises
 import a2m_torch
 for info in pkgutil.walk_packages(a2m_torch.__path__, 'a2m_torch.'):
@@ -22,7 +24,13 @@ for name in ('a2m_torch.models.discriminator', 'a2m_torch.models.losses',
              'a2m_torch.eval.metrics', 'a2m_torch.train.controller',
              'a2m_torch.train.train_step', 'a2m_torch.train.loop',
              'a2m_torch.eval.streaming', 'a2m_torch.audio.frontend',
-             'a2m_torch.audio.mel_np', 'a2m_torch.nn.gcn_kernel'):
+             'a2m_torch.audio.mel_np', 'a2m_torch.nn.gcn_kernel',
+             'a2m_torch.data', 'a2m_torch.data.dataset',
+             'a2m_torch.data.hdf5_io', 'a2m_torch.data.modalities',
+             'a2m_torch.data.normalization', 'a2m_torch.data.synthetic',
+             'a2m_torch.data.windowing', 'a2m_torch.audio.io',
+             'a2m_torch.audio.vad', 'a2m_torch.parallel.mesh',
+             'a2m_torch.device'):
     assert name in sys.modules, name
 from a2m_torch.audio import frontend
 from a2m_torch.eval import streaming
@@ -33,14 +41,49 @@ for fn in ('window_starts', 'blend', 'stream_poses', 'stream_poses_multi',
            'encode_ulaw', 'decode_ulaw', 'frame_streams_for_wire',
            'stream_from_waveform', 'stream_from_waveforms'):
     assert callable(getattr(streaming, fn)), fn
-for call in (build_pipeline, build_server, build_trainer, entry):
+from a2m_torch.audio import io
+from a2m_torch.data import Audio, DataLoader
+root = tempfile.mkdtemp()
+for call in (build_pipeline, build_server, build_trainer, entry,
+             lambda: build_trainer(path2data=root),
+             lambda: io.wav_to_features(root + '/none.wav'),
+             lambda: Audio(path2data=root),
+             lambda: DataLoader(path2data=root, speaker='oliver')):
     try:
         call()
     except RuntimeError as e:
         assert 'CUDA is not available' in str(e), e
     else:
-        raise AssertionError(f'{call.__name__}() ran without CUDA')
+        raise AssertionError(f'{call} ran without CUDA')
 print('isolated')
+'''
+
+# the card machine has no h5py and no pandas: every module imports without
+# them (and without jax), and the numpy/torch parts of the data path run
+CARD_PROBE = r'''
+import importlib, pkgutil, sys
+for name in ('jax', 'h5py', 'pandas'):
+    sys.modules[name] = None
+import a2m_torch
+for info in pkgutil.walk_packages(a2m_torch.__path__, 'a2m_torch.'):
+    importlib.import_module(info.name)
+import numpy as np
+from a2m_torch.data import Batcher, RandomSampler, get_mean_std_necksub
+from a2m_torch.data.synthetic import synth_pose
+from a2m_torch.data.windowing import window_index
+pose = synth_pose(900, np.random.default_rng(0)).astype(np.float32)
+w = window_index(len(pose), 15, 15, 4.3, window_hop=5)
+items = [{'pose/data': w.slice(pose, k)} for k in range(len(w))]
+mean, std = get_mean_std_necksub(Batcher(items, 16, RandomSampler(len(w))))
+assert mean.shape == std.shape == (104,)
+try:
+    from a2m_torch.data import read_master_csv
+    read_master_csv('.')
+except ImportError:
+    pass
+else:
+    raise AssertionError('pandas was blocked')
+print('card-ready')
 '''
 
 
@@ -51,6 +94,15 @@ def test_imports_without_jax_or_a2m_and_needs_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith('isolated')
+
+
+def test_imports_without_h5py_pandas_or_jax():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='', PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, '-c', CARD_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith('card-ready')
 
 
 def test_sources_name_neither_jax_nor_a2m():

@@ -11,7 +11,8 @@ direct DFT.  The mirror's FFT is ``np.fft.fft`` or a copy of the kernel's
 own radix-2 stages (bit-reversed load, stage twiddles read from the
 table).  Tolerance 1e-4 in log units: an FFT and a direct DFT compute the
 same f32 function in another order (as ``test_torch_frontend.py`` holds the
-plain version to a2m's radix DFT).
+plain version to a2m's radix DFT).  The mirror also runs in float64 on the
+exact tables, the data path of K2x (``tests/test_torch_mel_exact.py``).
 """
 
 import dataclasses
@@ -76,10 +77,11 @@ def test_window_as_the_frame_sees_it(family):
 
 
 def _radix2(z, tw):
-    """The kernel's FFT of the last axis (m points): bit-reversed load,
-    then radix-2 decimation-in-time stages, stage s reading twiddle entry
-    j << (log2 m - s) of the n_fft-point table.  (The kernel runs stages s
-    and s + 1 as one pass over 4 points: the same operations.)"""
+    """The kernel's FFT of the last axis (m points) in ``z``'s type:
+    bit-reversed load, then radix-2 decimation-in-time stages, stage s
+    reading twiddle entry j << (log2 m - s) of the n_fft-point table.  (The
+    kernel runs stages s and s + 1 as one pass over 4 points: the same
+    operations.)"""
     m = z.shape[-1]
     log2m = m.bit_length() - 1
     rev = np.array([int(f'{p:0{log2m}b}'[::-1], 2) for p in range(m)])
@@ -91,17 +93,30 @@ def _radix2(z, tw):
         h = 1 << s
         j = bf & (h - 1)
         i0 = ((bf >> s) << (s + 1)) + j
-        w = w_tab[j << (log2m - s)].astype(np.complex64)
+        w = w_tab[j << (log2m - s)].astype(z.dtype)
         a, c = out[..., i0], out[..., i0 + h] * w
         out[..., i0], out[..., i0 + h] = a + c, a - c
     return out
 
 
-def mirror_spectrum(y, spec, n_frames, fft='numpy'):
+def _reflect(s, n):
+    """The kernel's ``reflect``: reflect at either end until inside (one
+    sample repeats)."""
+    if n == 1:
+        return np.zeros_like(s)
+    while ((s < 0) | (s >= n)).any():
+        s = np.where(s < 0, -s, np.where(s >= n, 2 * (n - 1) - s, s))
+    return s
+
+
+def mirror_spectrum(y, spec, n_frames, fft='numpy', exact=False):
     """numpy copy of the kernel's data path up to the power (or magnitude)
     of bins 0..n_fft/2: (B, N) f32 -> ((B, T, n_fft) windowed frames,
-    (B, T, n_fft/2 + 1) spectrum)."""
-    t = frontend.fft_tables(spec)
+    (B, T, n_fft/2 + 1) spectrum), in f32 (K2) or in float64 on the exact
+    tables (K2x)."""
+    real = np.float64 if exact else np.float32
+    cplx = np.complex128 if exact else np.complex64
+    t = frontend.fft_tables(spec, exact)
     window, tw = t['window'], t['twiddle']
     frame_len, n_fft = t['frame_len'], spec.n_fft
     m = n_fft // 2
@@ -111,34 +126,34 @@ def mirror_spectrum(y, spec, n_frames, fft='numpy'):
          + np.arange(n_fft)[None, :])
     valid = (np.arange(n_fft)[None, :] < frame_len) & (s < n_samples
                                                       + 2 * pad)
-    s = np.abs(s - pad)
-    s = np.where(s >= n_samples, 2 * (n_samples - 1) - s, s)
-    x = np.where(valid, y[:, np.where(valid, s, 0)], 0).astype(np.float32)
+    s = _reflect(np.where(valid, s, 0) - pad, n_samples)
+    x = np.where(valid, y[:, s], 0).astype(real)
     x = x_frames = x * window
-    z = (x[..., 0::2] + 1j * x[..., 1::2]).astype(np.complex64)
-    z = np.fft.fft(z).astype(np.complex64) if fft == 'numpy' \
-        else _radix2(z, tw)
+    z = (x[..., 0::2] + 1j * x[..., 1::2]).astype(cplx)
+    z = np.fft.fft(z).astype(cplx) if fft == 'numpy' else _radix2(z, tw)
     k = np.arange(m + 1)
     a, c = z[..., k % m], np.conj(z[..., (m - k) % m])
-    w = np.append(tw[:, 0] + 1j * tw[:, 1], -1).astype(np.complex64)
-    x = 0.5 * (a + c) + w * (0.5 * (a - c) / 1j).astype(np.complex64)
-    p = (x.real * x.real + x.imag * x.imag).astype(np.float32)
+    w = np.append(tw[:, 0] + 1j * tw[:, 1], -1).astype(cplx)
+    x = 0.5 * (a + c) + w * (0.5 * (a - c) / 1j).astype(cplx)
+    p = (x.real * x.real + x.imag * x.imag).astype(real)
     if spec.power == 1.0:
         p = np.sqrt(p)
     return x_frames, p
 
 
-def mirror(y, spec, n_frames, fft='numpy'):
-    """numpy copy of the kernel's data path, (B, N) f32 -> (B, T, n_mels)."""
-    t = frontend.fft_tables(spec)
-    _, p = mirror_spectrum(y, spec, n_frames, fft)
-    mel = np.zeros(p.shape[:-1] + (spec.n_mels,), np.float32)
+def mirror(y, spec, n_frames, fft='numpy', exact=False):
+    """numpy copy of the kernel's data path, (B, N) f32 -> (B, T, n_mels),
+    in f32 (K2) or float64 (K2x)."""
+    t = frontend.fft_tables(spec, exact)
+    _, p = mirror_spectrum(y, spec, n_frames, fft, exact)
+    mel = np.zeros(p.shape[:-1] + (spec.n_mels,), p.dtype)
     for j, (first, count, offset) in enumerate(t['mel_bins']):
         mel[..., j] = p[..., first:first + count] @ \
             t['mel_weights'][offset:offset + count]
+    c = p.dtype.type(spec.log_const)
     if spec.log_mode == 'offset':
-        return np.log(mel + np.float32(spec.log_const))
-    return np.log(np.maximum(mel, np.float32(spec.log_const)))
+        return np.log(mel + c)
+    return np.log(np.maximum(mel, c))
 
 
 # (family, stride, samples, extra frames): a short centred signal whose
@@ -159,7 +174,8 @@ def test_mirror_matches_plain(family, stride, n_samples, extra, fft):
     y = (rng.standard_normal((2, n_samples)) * 0.1).astype(np.float32)
     n_frames = frontend.num_frames(spec, n_samples) + extra
     got = mirror(y, spec, n_frames, fft)
-    ref = frontend.log_mel(torch.from_numpy(y), spec, n_frames).numpy()
+    ref = frontend.log_mel(torch.from_numpy(y), spec, exact=False,
+                           n_frames=n_frames).numpy()
     assert got.shape == ref.shape == (2, n_frames, spec.n_mels)
     assert np.isfinite(got).all()
     assert np.abs(got - ref).max() < 1e-4

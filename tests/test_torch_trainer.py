@@ -167,3 +167,160 @@ def test_validate_and_fit_average_the_eval_metrics():
     empty = Trainer(_Param(), _Param(), log=lambda line: None,
                     steps=(g_step, d_step, eval_step))
     assert empty.validate() == {}
+
+
+# ---- the trainer over the data loader ---------------------------------------
+
+TINY_G = dict(in_channels=16, out_channels=16, joint_feat_dim=8, gat_heads=2)
+
+
+@pytest.fixture(scope='module')
+def pats_root(tmp_path_factory):
+    from a2m.data import make_synthetic_pats
+    return make_synthetic_pats(tmp_path_factory.mktemp('pats_train'),
+                               speakers=('oliver', 'noah'),
+                               intervals_per_speaker=4, duration_s=8.0)
+
+
+def _port_loader(root, window_hop=5):
+    from a2m_torch.data import DataLoader
+    return DataLoader(path2data=root, speaker=['oliver', 'noah'],
+                      batch_size=8, window_hop=window_hop, seed=0,
+                      device='cpu', max_intervals=1)
+
+
+def _a2m_prefetcher(num_style_speakers=0, lambda_aux=0.0, depth=2,
+                    aux_classes=10):
+    """a2m's ``Trainer._prefetch`` and ``_style_ids`` on an instance that
+    holds only what the two read (its constructor builds the JAX models)."""
+    from a2m import config as jconfig
+    from a2m.train.loop import Trainer as JaxTrainer
+    t = JaxTrainer.__new__(JaxTrainer)
+    t.cfg = jconfig.Config(
+        generator=jconfig.GeneratorConfig(
+            num_style_speakers=num_style_speakers),
+        discriminator=jconfig.DiscriminatorConfig(aux_classes=aux_classes),
+        train=jconfig.TrainConfig(lambda_aux=lambda_aux,
+                                  prefetch_batches=depth))
+    t.mesh = None
+    return t
+
+
+def _port_trainer(num_style_speakers=0, lambda_aux=0.0, depth=2,
+                  aux_classes=10, loader=None, **kw):
+    from a2m_torch.config import DiscriminatorConfig, GeneratorConfig
+    from a2m_torch.models.discriminator import Discriminator
+    from a2m_torch.models.generator import Generator
+    torch.manual_seed(0)
+    g = Generator(GeneratorConfig(num_style_speakers=num_style_speakers,
+                                  **TINY_G))
+    d = Discriminator(DiscriminatorConfig(
+        joint_feat_dim=8, gat_heads=2, aux_classes=aux_classes,
+        use_aux_classifier=lambda_aux > 0))
+    return Trainer(g, d, TrainConfig(lambda_aux=lambda_aux,
+                                     prefetch_batches=depth,
+                                     log_every_batches=1000),
+                   log=lambda line: None, loader=loader, **kw)
+
+
+@pytest.mark.parametrize('depth', [0, 2])
+@pytest.mark.parametrize('styled', [False, True], ids=['no_style', 'style'])
+def test_prefetch_stages_a2ms_batches(pats_root, depth, styled):
+    """The port's Trainer over the port's DataLoader stages the (audio,
+    pose, style, mask) that a2m's ``_prefetch`` stages over a2m's loader."""
+    from a2m.data import DataLoader as JaxLoader
+    n_style = 3 if styled else 0
+    ref_loader = JaxLoader(path2data=pats_root, speaker=['oliver', 'noah'],
+                           batch_size=8, window_hop=5, seed=0,
+                           max_intervals=1, use_pallas=False)
+    ref = list(_a2m_prefetcher(n_style, depth=depth)._prefetch(
+        iter(ref_loader.train)))
+    trainer = _port_trainer(n_style, depth=depth)
+    got = list(trainer._prefetch(_port_loader(pats_root).train))
+    assert len(got) == len(ref) > 1
+    for g, r in zip(got, ref):
+        for gt, rt in zip(g, r):
+            if rt is None:
+                assert gt is None
+                continue
+            assert gt.device == trainer.device
+            np.testing.assert_array_equal(gt.numpy(), np.asarray(rt))
+            assert gt.dtype == {np.dtype('float32'): torch.float32,
+                                np.dtype('int32'): torch.int32}[
+                                    np.asarray(rt).dtype]
+    assert (got[0][2] is not None) == styled
+
+
+def test_style_ids_and_aux_range_error_match_a2m(pats_root):
+    batch = next(iter(_port_loader(pats_root).train))
+    for n_style, aux in ((0, 0.0), (2, 0.0), (0, 0.5)):
+        got = _port_trainer(n_style, aux)._style_ids(batch)
+        ref = _a2m_prefetcher(n_style, aux)._style_ids(batch)
+        if ref is None:
+            assert got is None
+        else:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    bad = dict(batch, style=np.full_like(batch['style'], 12))
+    for trainer in (_port_trainer(0, 0.5, aux_classes=10),
+                    _a2m_prefetcher(0, 0.5, aux_classes=10)):
+        with pytest.raises(ValueError, match='aux_classes'):
+            trainer._style_ids(bad)
+
+
+def test_prefetch_surfaces_worker_errors_and_stops(pats_root):
+    trainer = _port_trainer()
+
+    def failing():
+        yield next(iter(_port_loader(pats_root).train))
+        raise OSError('interval file vanished')
+
+    with pytest.raises(OSError, match='vanished'):
+        list(trainer._prefetch(failing()))
+    staged = trainer._prefetch(_port_loader(pats_root).train)
+    next(staged)
+    staged.close()                      # the epoch abandoned: no hang
+
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads for the duration of a test: a run of many small
+    steps spends its time in the pool's barriers when every core is busy
+    (the fit test below took 82 s with eight threads and 8 s with two on an
+    8-core CPU that other processes kept busy; 4-6 s either way on an idle
+    one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_fit_over_loader_matches_tuple_batches(pats_root, two_threads):
+    """``fit(1)`` on the tiny config over the loader, with the moments of
+    its train set, equals a run fed the same batches as tuples (a window
+    hop of 20 frames: one wrap-padded batch of 6 windows a split)."""
+    from a2m_torch.data.normalization import get_mean_std_necksub
+    a = _port_trainer(loader=_port_loader(pats_root, window_hop=20))
+    twin = _port_loader(pats_root, window_hop=20)
+    assert len(twin.train) == len(twin.dev) == 1
+    mean, std = get_mean_std_necksub(twin.train)     # the loader's first pass
+    np.testing.assert_array_equal(a.mean.numpy(), mean)
+    np.testing.assert_array_equal(a.std.numpy(), std)
+
+    def tuples(batches):
+        return [(torch.from_numpy(b['audio/log_mel_512']),
+                 torch.from_numpy(b['pose/data']), None,
+                 torch.from_numpy(b['mask'])) for b in batches]
+
+    b = _port_trainer(train_batches=tuples(twin.train),
+                      dev_batches=tuples(twin.dev), mean=mean, std=std)
+    histories = []
+    for trainer in (a, b):
+        torch.manual_seed(1)
+        histories.append(trainer.fit(1))
+    assert histories[0] == histories[1]
+    assert np.isfinite(histories[0]['val_g']).all()
+    for (name, p), q in zip(a.g_state.model.named_parameters(),
+                            b.g_state.model.parameters()):
+        assert torch.equal(p, q), name
