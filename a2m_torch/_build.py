@@ -40,8 +40,11 @@ SIGNATURES = {
     },
     'gcn_stack_edge': {
         'a2m_gcn_stack_edge': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P],
+                               _I, _P],
         'a2m_gcn_stack_edge_tile': [_I, _I, _I, _I],
+        'a2m_gcn_stack_edge_tc': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        'a2m_gcn_stack_edge_tc_info': [_I, _P],
     },
     'log_mel': {
         'a2m_log_mel': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -18,7 +18,9 @@ the 5-layer GAT/GraphConv stack with LayerNorm, LeakyReLU and residual on
   gradient-free forward in edge form, a tile of graphs in joint-major
   order with the routing over the constant edge lists of
   :func:`edge_matrices`, and a2m's rounding points for that kernel, which
-  are not ``_kernel``'s.
+  are not ``_kernel``'s.  With bf16 operands its products run on the
+  tensor cores, on the launch plan of :func:`edge_tc_plan` and the weights
+  of :func:`edge_tc_weights`; with f32 operands on the CUDA cores.
 
 :func:`gcn_stack_trainable` joins them as one ``torch.autograd.Function``,
 the twin of ``_make_trainable`` (``:722-780``).
@@ -183,7 +185,7 @@ def edge_routing(adjacency: torch.Tensor) -> dict:
     ``ptr`` the per-destination ranges of the E edges and ``conv_*`` the
     same for the Ec nonzero entries of A itself (GraphConv's A @ X)."""
     key = (adjacency.data_ptr(), adjacency._version, adjacency.device)
-    if key not in _routing:
+    if key not in _routing or _routing[key]['adjacency'] is not adjacency:
         adj = adjacency.detach().cpu().numpy()
         j = adj.shape[0]
         s_mat, d_mat, dt_mat = edge_matrices(adj)
@@ -202,7 +204,9 @@ def edge_routing(adjacency: torch.Tensor) -> dict:
             route=torch.as_tensor(route.astype(np.int32), device=dev),
             conv_w=torch.as_tensor(adj[cdst, csrc].astype(np.float32),
                                    device=dev),
-            edges=len(src), conv_edges=len(csrc))
+            edges=len(src), conv_edges=len(csrc),
+            # held, so that no other tensor takes this key's address
+            adjacency=adjacency)
     return _routing[key]
 
 
@@ -403,13 +407,130 @@ def gcn_stack(x: torch.Tensor, params: torch.Tensor,
 gcn_stack.launches = 0
 
 
+#: the tensor-core kernel's fixed shapes (csrc/gcn_stack_edge.cu): threads
+#: a block, most rows a tile, features a row after zero-padding, f32 row
+#: stride of x in shared memory, bytes of one 64 x 64 bf16 weight block
+TC_THREADS, TC_MAX_ROWS, TC_FEATURES, TC_X_STRIDE = 256, 128, 64, 72
+TC_BLOCK = TC_FEATURES * TC_FEATURES * 2
+#: shared memory one block may take on the H100
+TC_SMEM_LIMIT = 232_448
+
+
+def _tc_smem_bytes(j: int, heads: int, num_layers: int, edges: int,
+                   conv_edges: int, graphs: int, padded: int,
+                   chunk: int) -> int:
+    """Shared bytes of the tensor-core kernel's layout (``tc_layout`` in the
+    source, which refuses a plan whose bytes differ): the GAT layers'
+    weights, x's bf16 operand tile, one chunk's bf16 XW (rows padded by 16
+    bytes) or the neigh tile and one GraphConv layer's two weight blocks, x
+    in f32, a_src/a_dst/alpha of a chunk, the routing lists, and 1 KB to
+    align the base to the 128-byte swizzle's period."""
+    rows = j * graphs
+    weights = (num_layers + 1) // 2 * heads * TC_BLOCK
+    return (weights + padded * TC_FEATURES * 2
+            + max(padded * (chunk * TC_FEATURES + 8) * 2,
+                  padded * TC_FEATURES * 2 + 2 * TC_BLOCK)
+            + rows * TC_X_STRIDE * 4 + 2 * rows * chunk * 4
+            + edges * graphs * chunk * 4 + conv_edges * 4
+            + (2 * edges + conv_edges + 2 * (j + 1)) * 4 + 1024)
+
+
+def edge_tc_plan(j: int, f: int, heads: int, edges: int, conv_edges: int,
+                 num_layers: int = 5) -> dict:
+    """Launch plan of the tensor-core edge kernel for one skeleton: the most
+    whole graphs a tile (``graphs``) whose joint-major rows, padded to a
+    multiple of 64 (``padded_rows``, at most 128), fit the block's shared
+    memory (``smem_bytes``) beside the GAT layers' weights, with GAT heads
+    in chunks of the most heads (4, 2 or 1, a divisor of H) that then fit
+    (``head_chunk``).  Raises where no tile fits.  The grid is one
+    persistent block an SM, at most one a tile."""
+    if f % 4 or not 0 < f <= TC_FEATURES:
+        raise ValueError(f'gcn_stack_edge: the tensor-core kernel takes '
+                         f'F % 4 == 0 and F <= {TC_FEATURES}, not F={f}')
+    plan = None
+    for graphs in range(1, TC_MAX_ROWS // j + 1):
+        padded = -(-j * graphs // 64) * 64
+        fits = [(chunk, nbytes) for chunk in (4, 2, 1) if heads % chunk == 0
+                for nbytes in [_tc_smem_bytes(j, heads, num_layers, edges,
+                                              conv_edges, graphs, padded,
+                                              chunk)]
+                if nbytes <= TC_SMEM_LIMIT]
+        if not fits:
+            break
+        chunk, nbytes = fits[0]
+        plan = dict(graphs=graphs, rows=j * graphs, padded_rows=padded,
+                    head_chunk=chunk, smem_bytes=nbytes, threads=TC_THREADS)
+    if plan is None:
+        raise ValueError(f'gcn_stack_edge: no tile of J={j}, F={f}, '
+                         f'heads={heads}, layers={num_layers} fits the '
+                         f'tensor-core kernel ({TC_MAX_ROWS} rows, '
+                         f'{TC_SMEM_LIMIT} bytes of shared memory)')
+    return plan
+
+
+def swizzle_block(block: torch.Tensor) -> torch.Tensor:
+    """A (64, 64) operand block in wgmma's 128-byte swizzle: row n's 16-byte
+    chunk c (8 bf16 values) moves to chunk c ^ (n % 8).  Its own inverse."""
+    n = torch.arange(TC_FEATURES, device=block.device)[:, None]
+    c = torch.arange(8, device=block.device)[None, :]
+    return block.reshape(TC_FEATURES, 8, 8)[n, c ^ (n % 8)].reshape(
+        TC_FEATURES, TC_FEATURES)
+
+
+#: (params tensor, its version, device, shapes) -> (params, weights)
+_tc_weights: dict = {}
+
+
+def edge_tc_weights(params: torch.Tensor, f: int, heads: int,
+                    num_layers: int = 5) -> dict:
+    """The tensor-core kernel's weights, built once per params tensor and
+    version, on its device.  ``blocks`` (n, 64, 64) bf16: per GAT layer one
+    block per head, W[:, h]^T; per GraphConv layer W_rel^T and W_root^T;
+    each rounded to bf16 as a2m's ``_mm`` rounds W (once, here),
+    zero-padded to 64 x 64 and swizzled (:func:`swizzle_block`).  ``att``
+    (GAT layers, heads, 2, 64) float64: W_h att_src and W_h att_dst of the
+    rounded W_h, zero-padded, from which the kernel takes a_src = x . (W_h
+    att_src), the logit of the unrounded XW_h, in float64."""
+    key = (params.data_ptr(), params._version, params.device, f, heads,
+           num_layers)
+    hit = _tc_weights.get(key)
+    if hit is not None and hit[0] is params:
+        return hit[1]
+    blocks, att = [], []
+    for i, layer in enumerate(_unpack(params.detach(), f, heads,
+                                      num_layers)):
+        mats = ([layer[0][:, h * f:(h + 1) * f] for h in range(heads)]
+                if i % 2 == 0 else layer[:2])
+        for w in mats:
+            block = torch.zeros((TC_FEATURES, TC_FEATURES),
+                                dtype=torch.bfloat16, device=params.device)
+            block[:f, :f] = w.t().to(torch.bfloat16)
+            blocks.append(swizzle_block(block))
+        if i % 2 == 0:
+            for h, w in enumerate(mats):
+                wd = _op(w, False).double()
+                pair = torch.zeros((2, TC_FEATURES), dtype=torch.float64,
+                                   device=params.device)
+                pair[0, :f] = wd @ layer[1][h].double()
+                pair[1, :f] = wd @ layer[2][h].double()
+                att.append(pair)
+    packed = dict(blocks=torch.stack(blocks).contiguous(),
+                  att=torch.stack(att).view(-1, heads, 2, TC_FEATURES))
+    if len(_tc_weights) >= 16:
+        _tc_weights.pop(next(iter(_tc_weights)))
+    # the params tensor is held, so that no other tensor takes its address
+    _tc_weights[key] = (params, packed)
+    return packed
+
+
 def gcn_stack_edge(x: torch.Tensor, params: torch.Tensor,
                    adjacency: torch.Tensor, heads: int, num_layers: int = 5,
                    precise: bool = False) -> torch.Tensor:
     """The fused stack in edge form on (..., J, F) f32; takes and returns
-    what :func:`gcn_stack` does.  CUDA tensors launch the edge-form kernel
-    (deterministic: the same inputs give bit-equal outputs), CPU tensors
-    run :func:`gcn_stack_edge_plain`."""
+    what :func:`gcn_stack` does.  CUDA tensors launch the edge-form kernel,
+    on the tensor cores with bf16 operands and on the CUDA cores with
+    ``precise`` (deterministic: the same inputs give bit-equal outputs);
+    CPU tensors run :func:`gcn_stack_edge_plain`."""
     j, f = x.shape[-2:]
     _check_stack_args('gcn_stack_edge', x, params, adjacency, heads,
                       num_layers)
@@ -423,14 +544,28 @@ def gcn_stack_edge(x: torch.Tensor, params: torch.Tensor,
         xf = xf.clone()
     params = params.contiguous()
     routing = edge_routing(adjacency)
+    n, edges, conv_edges = xf.shape[0], routing['edges'], routing[
+        'conv_edges']
     out = torch.empty_like(xf)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _build.load('gcn_stack_edge')
-    code = lib.a2m_gcn_stack_edge(
-        xf.data_ptr(), out.data_ptr(), params.data_ptr(),
-        routing['route'].data_ptr(), routing['conv_w'].data_ptr(),
-        xf.shape[0], j, f, heads, num_layers, routing['edges'],
-        routing['conv_edges'], int(precise),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if precise:
+        code = lib.a2m_gcn_stack_edge(
+            xf.data_ptr(), out.data_ptr(), params.data_ptr(),
+            routing['route'].data_ptr(), routing['conv_w'].data_ptr(), n, j,
+            f, heads, num_layers, edges, conv_edges, stream)
+    else:
+        plan = edge_tc_plan(j, f, heads, edges, conv_edges, num_layers)
+        weights = edge_tc_weights(params, f, heads, num_layers)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        grid = min(-(-n // plan['graphs']), sms)
+        code = lib.a2m_gcn_stack_edge_tc(
+            xf.data_ptr(), out.data_ptr(), params.data_ptr(),
+            weights['blocks'].data_ptr(), weights['att'].data_ptr(),
+            routing['route'].data_ptr(),
+            routing['conv_w'].data_ptr(), n, j, f, heads, num_layers, edges,
+            conv_edges, plan['graphs'], plan['padded_rows'],
+            plan['head_chunk'], plan['smem_bytes'], grid, stream)
     _build.check(lib, code, 'gcn_stack_edge')
     gcn_stack_edge.launches += 1
     return out.reshape(x.shape)
@@ -440,13 +575,28 @@ gcn_stack_edge.launches = 0
 
 
 def edge_tile(adjacency: torch.Tensor, f: int) -> int:
-    """Graphs per block the edge-form kernel takes for this skeleton (its
-    own choice from the shared-memory budget; results do not depend on
-    it)."""
+    """Graphs per block the f32 mode's CUDA-core kernel takes for this
+    skeleton (its own choice from the shared-memory budget; results do not
+    depend on it)."""
     from a2m_torch import _build
     routing = edge_routing(adjacency)
     return _build.load('gcn_stack_edge').a2m_gcn_stack_edge_tile(
         adjacency.shape[0], f, routing['edges'], routing['conv_edges'])
+
+
+def edge_tc_info(smem_bytes: int) -> dict:
+    """The tensor-core kernel as built, on the card: registers and local
+    (spill) bytes a thread, blocks an SM at ``smem_bytes``, threads a
+    block."""
+    import ctypes
+
+    from a2m_torch import _build
+    lib = _build.load('gcn_stack_edge')
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.a2m_gcn_stack_edge_tc_info(smem_bytes, out),
+                 'gcn_stack_edge_tc_info')
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                threads=out[3])
 
 
 def gcn_stack_fwd(x: torch.Tensor, params: torch.Tensor,

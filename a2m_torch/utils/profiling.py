@@ -35,7 +35,8 @@ CATEGORIES = (
                        'reduce_partials_kernel')),
     ('gcn_stack_fwd', ('gcn_stack_kernel<false, true>',
                        'gcn_stack_kernel<true, true>')),
-    ('gcn_stack_edge', ('gcn_stack_edge_kernel',)),
+    ('gcn_stack_edge', ('gcn_stack_edge_kernel',
+                        'gcn_stack_edge_tc_kernel')),
     ('gcn_stack', ('gcn_stack_kernel',)),
     ('log_mel', ('log_mel_fft_kernel',)),
     ('convolution', ('conv', 'cudnn', 'implicit_gemm', 'fprop', 'dgrad',

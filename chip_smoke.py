@@ -39,11 +39,18 @@ each fatal on failure:
    batches and ``validate()`` with finite metrics, one ``g_step``'s
    gradients with f32 kernel operands against the same step on the eager
    stacks, and the ms per step, fused beside unfused ``g_step``;
-8. ``gcn_stack_edge`` (K5, the forward in edge form) against its plain
-   version at the serving shapes (N = 13,824 graphs) and at a ragged N, J in
-   {10, 42}: f32 operands within 2e-5 of the plain version and of K1, bf16
-   operands within 1% of max|ref| and the mean rule of phase 3, two runs
-   bit-equal, timed beside its bound and beside K1 at the same N; and the
+8. ``gcn_stack_edge`` (K5, the forward in edge form; bf16 operands on the
+   tensor cores, f32 on the CUDA cores): the HGMMA instructions in its
+   library's SASS (``cuobjdump -sass``, more than 0), its launch plan
+   (graphs a tile, rows, shared bytes, blocks an SM, registers, spills),
+   then against its plain version at the serving shapes (N = 13,824
+   graphs), at N = 1001 and at N in {1, T - 1, T + 1} (T graphs a tile), J
+   in {10, 42}, the smaller inputs being the first graphs of the largest:
+   f32 operands within 2e-5 of the plain version and of K1, bf16 operands
+   within 1% of max|ref| and, at N >= 1001, the mean rule of phase 3 (a
+   mean over fewer graphs is printed: one graph decides it), two runs
+   bit-equal, every smaller call bit-equal to the first graphs of the
+   N = 13,824 call, timed beside its bound and beside K1 at the same N; and the
    log-mel modes that serving adds to K2 against its plain version (1e-4):
    ``log_mel_512`` at B = 8, T = 891 and B = 1, ``log_mel_400`` and VGGish
    on 16 kHz (magnitude, 64 mels, uncentred frames of 512 and 400, htk
@@ -159,32 +166,11 @@ def device_line() -> str:
     return out.stdout.strip()
 
 
-def random_stack_params(f: int, heads: int, gen):
-    """Seeded stack parameters at the scale of trained ones."""
-    import torch
-    from a2m_torch.nn import gcn_kernel
-
-    def t(*shape, scale=1.0, offset=0.0):
-        return torch.randn(*shape, generator=gen) * scale + offset
-
-    layers = []
-    for i in range(5):
-        norm = (t(f, scale=0.1, offset=1.0), t(f, scale=0.1))
-        if i % 2 == 0:
-            layers.append((t(f, heads * f, scale=f ** -0.5),
-                           t(heads, f, scale=f ** -0.5),
-                           t(heads, f, scale=f ** -0.5), t(f, scale=0.1))
-                          + norm)
-        else:
-            layers.append((t(f, f, scale=f ** -0.5), t(f, f, scale=f ** -0.5),
-                           t(f, scale=0.1)) + norm)
-    return gcn_kernel.pack_params(layers)
-
-
 def gcn_phase() -> dict:
     import torch
     from a2m_torch import constants
     from a2m_torch.nn import gcn_kernel
+    from a2m_torch.utils.edge_probe import stack_params
 
     f, heads, n_main = 64, 4, 128 * 64
     gen = torch.Generator().manual_seed(0)
@@ -192,7 +178,7 @@ def gcn_phase() -> dict:
            42: constants.adjacency_from_edges(constants.hand_edges(), 42)}
     entry = dict(ms=0.0, plain_ms=0.0, flops=0, bytes=0, max_abs_err=0.0)
     for j in (10, 42):
-        params = random_stack_params(f, heads, gen).cuda()
+        params = stack_params(f, heads, gen).cuda()
         a = torch.as_tensor(adj[j]).cuda()
         for n in (n_main, 1001):
             x = torch.randn(n, j, f, generator=gen).cuda()
@@ -298,6 +284,7 @@ def gcn_train_phase() -> tuple[dict, dict]:
     import torch
     from a2m_torch import constants
     from a2m_torch.nn import gcn_kernel as gk
+    from a2m_torch.utils.edge_probe import stack_params
 
     f, heads, n_main = 64, 4, 128 * 64
     gen = torch.Generator().manual_seed(3)
@@ -306,7 +293,7 @@ def gcn_train_phase() -> tuple[dict, dict]:
     fwd = dict(ms=0.0, plain_ms=0.0, flops=0, bytes=0, max_abs_err=0.0)
     bwd = dict(ms=0.0, plain_ms=0.0, flops=0, bytes=0, max_abs_err=0.0)
     for j in (10, 42):
-        params = random_stack_params(f, heads, gen).cuda()
+        params = stack_params(f, heads, gen).cuda()
         a = torch.as_tensor(adj[j]).cuda()
         for n in (n_main, 1001):
             x = away_from_kink(torch.randn(n, j, f, generator=gen).cuda(),
@@ -790,12 +777,23 @@ def train_phase() -> dict:
                 fused_vs_eager_grad=worst, batch=batch, **times)
 
 
+def hgmma_count(name: str) -> int:
+    """HGMMA (wgmma) instructions in the SASS of a built kernel library."""
+    from a2m_torch import _build
+    tool = Path(_build._nvcc()).with_name('cuobjdump')
+    out = subprocess.run([str(tool), '-sass', str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, f'cuobjdump failed: {out.stderr[-2000:]}')
+    return sum('HGMMA' in line for line in out.stdout.splitlines())
+
+
 def edge_phase() -> dict:
     """K5 against its plain version and against K1; returns its entry of
     the kernels line."""
     import torch
     from a2m_torch import constants
     from a2m_torch.nn import gcn_kernel as gk
+    from a2m_torch.utils.edge_probe import stack_params
 
     f, heads, n_main = 64, 4, SERVE_STREAMS * SERVE_WINDOWS * 64
     gen = torch.Generator().manual_seed(6)
@@ -803,13 +801,33 @@ def edge_phase() -> dict:
            42: constants.adjacency_from_edges(constants.hand_edges(), 42)}
     entry = dict(ms=0.0, plain_ms=0.0, flops=0, bytes=0, max_abs_err=0.0)
     k1_ms = 0.0
+    hgmma = hgmma_count('gcn_stack_edge')
+    print(f'gcn_stack_edge: {hgmma} HGMMA instructions in the built '
+          f'library\'s SASS', flush=True)
+    require(hgmma > 0, 'gcn_stack_edge: no HGMMA in the built library')
     for j in (10, 42):
-        params = random_stack_params(f, heads, gen).cuda()
+        params = stack_params(f, heads, gen).cuda()
         a = torch.as_tensor(adj[j]).cuda()
-        print(f'gcn_stack_edge J={j}: {gk.edge_tile(a, f)} graphs per block, '
-              f'{gk.edge_routing(a)["edges"]} edges', flush=True)
-        for n in (n_main, 1001):
-            x = torch.randn(n, j, f, generator=gen).cuda()
+        routing = gk.edge_routing(a)
+        plan = gk.edge_tc_plan(j, f, heads, routing['edges'],
+                               routing['conv_edges'])
+        info = gk.edge_tc_info(plan['smem_bytes'])
+        print(f'gcn_stack_edge J={j}: {routing["edges"]} edges; bf16 mode '
+              f'(tensor cores): {plan["graphs"]} graphs a tile, '
+              f'{plan["rows"]} rows padded to {plan["padded_rows"]}, '
+              f'{plan["smem_bytes"]} B shared, {info["blocks_per_sm"]} '
+              f'block an SM of {info["threads"]} threads, '
+              f'{info["registers"]} registers, {info["local_bytes"]} B local '
+              f'(spills); f32 mode (CUDA cores): {gk.edge_tile(a, f)} graphs '
+              f'a block', flush=True)
+        # N = 1001 and N in {1, T - 1, T + 1} are the first graphs of the
+        # N = 13,824 input: their outputs are the first rows of its output,
+        # bit for bit (a row depends on its own graph, not on T or N)
+        x_main = torch.randn(n_main, j, f, generator=gen).cuda()
+        small = sorted({1, plan['graphs'] - 1, plan['graphs'] + 1} - {0})
+        full = {}
+        for n in (n_main, 1001, *small):
+            x = x_main[:n]
             ref32 = gk.gcn_stack_edge_plain(x, params, a, heads, precise=True)
             for precise in (True, False):
                 tag = f'gcn_stack_edge J={j} N={n} precise={precise}'
@@ -823,11 +841,19 @@ def edge_phase() -> dict:
                         f'{tag}: non-finite output')
                 require(bool(torch.equal(got, again)),
                         f'{tag}: two runs on the same input differ')
+                if n == n_main:
+                    full[precise] = got
+                else:
+                    require(bool(torch.equal(got, full[precise][:n])),
+                            f'{tag}: differs from the first {n} graphs of '
+                            f'the N={n_main} call')
                 err, scale = rel_err(got, ref)
                 tol = 2e-5 if precise else 0.01 * scale
-                print(f'{tag}: bit-equal over two runs; max_abs_err='
-                      f'{err:.3e} (max|ref| {scale:.3f}, tol {tol:.3e})',
-                      flush=True)
+                print(f'{tag}: bit-equal over two runs'
+                      + ('' if n == n_main else f' and to the first {n} '
+                         f'graphs of N={n_main}')
+                      + f'; max_abs_err={err:.3e} (max|ref| {scale:.3f}, '
+                      f'tol {tol:.3e})', flush=True)
                 require(err <= tol, f'{tag}: {err} > {tol}')
                 if precise:
                     # with f32 operands the edge form and the dense kernel
@@ -841,12 +867,22 @@ def edge_phase() -> dict:
                     continue
                 mean_err = (got - ref).abs().mean().item()
                 gap = (ref - ref32).abs().mean().item()
+                # The mean rule holds a population of graphs: below ~1,000
+                # graphs one graph whose bf16 roundings tie differently
+                # (f32 summation order) decides it alone.  The small-N
+                # outputs are the first rows of the N = 13,824 output, bit
+                # for bit (above), which the rule holds.
+                gated = n >= 1001
                 print(f'{tag}: mean|kernel - plain bf16| {mean_err:.3e}, '
-                      f'mean|plain bf16 - plain f32| {gap:.3e} (tol '
-                      f'{BF16_MEAN_SHARE} of it)', flush=True)
-                require(mean_err <= BF16_MEAN_SHARE * gap,
-                        f'{tag}: mean error {mean_err} not below '
-                        f'{BF16_MEAN_SHARE} x the gap {gap}')
+                      f'mean|plain bf16 - plain f32| {gap:.3e} (share '
+                      f'{mean_err / gap:.4f}; '
+                      + (f'tol {BF16_MEAN_SHARE})' if gated else
+                         f'{n} graphs: printed, the N={n_main} call holds '
+                         f'them)'), flush=True)
+                if gated:
+                    require(mean_err <= BF16_MEAN_SHARE * gap,
+                            f'{tag}: mean error {mean_err} not below '
+                            f'{BF16_MEAN_SHARE} x the gap {gap}')
                 if n == n_main:
                     entry['max_abs_err'] = max(entry['max_abs_err'], err)
         # the serving path's mode: bf16 operands, N = streams x windows x T
