@@ -29,9 +29,13 @@ _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 #: code, 0 on success; ``a2m_error_string`` names it)
 SIGNATURES = {
     'gcn_stack': {
-        'a2m_gcn_stack': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        'a2m_gcn_stack_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P],
+        'a2m_gcn_stack': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        'a2m_gcn_stack_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        'a2m_gcn_stack_tc': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _P],
+        'a2m_gcn_stack_fwd_tc': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        'a2m_gcn_stack_tc_info': [_I, _I, _P],
     },
     'gcn_stack_bwd': {
         'a2m_gcn_stack_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -6,9 +6,11 @@ the 5-layer GAT/GraphConv stack with LayerNorm, LeakyReLU and residual on
 
 * :func:`gcn_stack` (``csrc/gcn_stack.cu``) replaces ``_kernel`` (called by
   ``fused_gcn_stack``, ``:228-334``): the gradient-free forward;
-* :func:`gcn_stack_fwd` (same source, own entry point) replaces
+* :func:`gcn_stack_fwd` (same source, own entry points) replaces
   ``_fwd_kernel`` (``:529``, called by ``_fwd_with_residuals``): the forward
-  that also stores the input of layers 2..L;
+  that also stores the input of layers 2..L.  With bf16 operands both run
+  on the tensor cores, on the launch plan of :func:`dense_tc_plan` and the
+  weights of :func:`edge_tc_weights`; with f32 operands on the CUDA cores;
 * :func:`gcn_stack_bwd` (``csrc/gcn_stack_bwd.cu``) replaces ``_bwd_kernel``
   (``:557``, called by ``_bwd_call``): the reverse walk that recomputes each
   layer from its stored input and returns ``dx`` and every parameter
@@ -183,7 +185,8 @@ def edge_routing(adjacency: torch.Tensor) -> dict:
     ``dt_mat`` (J, E), D.T; and the kernel's buffers ``route`` int32 [src,
     dst, ptr (J + 1), conv_src, conv_ptr (J + 1)] and ``conv_w`` f32, with
     ``ptr`` the per-destination ranges of the E edges and ``conv_*`` the
-    same for the Ec nonzero entries of A itself (GraphConv's A @ X)."""
+    same for the Ec nonzero entries of A itself (GraphConv's A @ X);
+    ``slots`` the most edges of A + I that end at one node."""
     key = (adjacency.data_ptr(), adjacency._version, adjacency.device)
     if key not in _routing or _routing[key]['adjacency'] is not adjacency:
         adj = adjacency.detach().cpu().numpy()
@@ -195,7 +198,8 @@ def edge_routing(adjacency: torch.Tensor) -> dict:
         def ranges(sorted_dst):
             return np.searchsorted(sorted_dst, np.arange(j + 1))
 
-        route = np.concatenate([src, dst, ranges(dst), csrc, ranges(cdst)])
+        ptr = ranges(dst)
+        route = np.concatenate([src, dst, ptr, csrc, ranges(cdst)])
         dev = adjacency.device
         _routing[key] = dict(
             src=torch.as_tensor(src, device=dev),
@@ -205,6 +209,7 @@ def edge_routing(adjacency: torch.Tensor) -> dict:
             conv_w=torch.as_tensor(adj[cdst, csrc].astype(np.float32),
                                    device=dev),
             edges=len(src), conv_edges=len(csrc),
+            slots=int(np.diff(ptr).max()),
             # held, so that no other tensor takes this key's address
             adjacency=adjacency)
     return _routing[key]
@@ -381,8 +386,10 @@ def gcn_stack(x: torch.Tensor, params: torch.Tensor,
     """Fused stack on (..., J, F) f32; returns the same shape.
 
     ``params`` from :func:`pack_params`; ``adjacency`` (J, J) f32, A[dst,
-    src] without self-loops.  CUDA tensors launch the kernel, CPU tensors
-    run :func:`gcn_stack_plain`."""
+    src] without self-loops.  CUDA tensors launch the kernel, on the tensor
+    cores with bf16 operands and on the CUDA cores with ``precise`` (both
+    deterministic: the same inputs give bit-equal outputs); CPU tensors run
+    :func:`gcn_stack_plain`."""
     j, f = x.shape[-2:]
     _check_stack_args('gcn_stack', x, params, adjacency, heads, num_layers)
     xf = x.reshape(-1, j, f)
@@ -390,26 +397,58 @@ def gcn_stack(x: torch.Tensor, params: torch.Tensor,
         return gcn_stack_plain(xf, params, adjacency, heads, num_layers,
                                precise).reshape(x.shape)
     from a2m_torch import _build
-    xf = xf.contiguous()
+    xf = _aligned(xf)
     params, adjacency = params.contiguous(), adjacency.contiguous()
     out = torch.empty_like(xf)
     lib = _build.load('gcn_stack')
-    code = lib.a2m_gcn_stack(
-        xf.data_ptr(), out.data_ptr(), params.data_ptr(),
-        adjacency.data_ptr(), xf.shape[0], j, f, heads, num_layers,
-        int(precise), torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if precise:
+        code = lib.a2m_gcn_stack(
+            xf.data_ptr(), out.data_ptr(), params.data_ptr(),
+            adjacency.data_ptr(), xf.shape[0], j, f, heads, num_layers,
+            stream)
+    else:
+        code = lib.a2m_gcn_stack_tc(
+            xf.data_ptr(), out.data_ptr(),
+            *_dense_tc_args(xf, params, adjacency, heads, num_layers),
+            stream)
     _build.check(lib, code, 'gcn_stack')
     gcn_stack.launches += 1
     return out.reshape(x.shape)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned (the kernels load float4)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _dense_tc_args(x: torch.Tensor, params: torch.Tensor,
+                   adjacency: torch.Tensor, heads: int,
+                   num_layers: int) -> tuple:
+    """The dense tensor-core entries' arguments after x, y (and xs): params,
+    packed weights, routing, shapes, plan and grid."""
+    n, j, f = x.shape
+    routing = edge_routing(adjacency)
+    plan = dense_tc_plan(j, f, heads, routing['slots'], num_layers)
+    weights = edge_tc_weights(params, f, heads, num_layers)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return (params.data_ptr(), weights['blocks'].data_ptr(),
+            weights['att'].data_ptr(), routing['route'].data_ptr(),
+            routing['conv_w'].data_ptr(), n, j, f, heads, num_layers,
+            routing['edges'], routing['conv_edges'], plan['graphs'],
+            plan['slots'], plan['smem_bytes'],
+            min(-(-n // plan['graphs']), sms))
 
 
 #: kernel launches since the count was last set to 0
 gcn_stack.launches = 0
 
 
-#: the tensor-core kernel's fixed shapes (csrc/gcn_stack_edge.cu): threads
-#: a block, most rows a tile, features a row after zero-padding, f32 row
-#: stride of x in shared memory, bytes of one 64 x 64 bf16 weight block
+#: the tensor-core kernels' fixed shapes (csrc/gcn_stack_edge.cu; threads,
+#: features and weight blocks also csrc/gcn_stack.cu): threads a block, most
+#: rows a tile, features a row after zero-padding, f32 row stride of x in
+#: shared memory, bytes of one 64 x 64 bf16 weight block
 TC_THREADS, TC_MAX_ROWS, TC_FEATURES, TC_X_STRIDE = 256, 128, 64, 72
 TC_BLOCK = TC_FEATURES * TC_FEATURES * 2
 #: shared memory one block may take on the H100
@@ -466,6 +505,73 @@ def edge_tc_plan(j: int, f: int, heads: int, edges: int, conv_edges: int,
                          f'tensor-core kernel ({TC_MAX_ROWS} rows, '
                          f'{TC_SMEM_LIMIT} bytes of shared memory)')
     return plan
+
+
+#: the dense tensor-core kernel (csrc/gcn_stack.cu): rows a tile, heads the
+#: apply holds in registers, most edges of A + I into one node
+DENSE_TC_ROWS, DENSE_TC_MAX_HEADS, DENSE_TC_MAX_SLOTS = 128, 4, 8
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _dense_tc_smem_bytes(j: int, heads: int, num_layers: int,
+                         slots: int) -> int:
+    """Shared bytes of the dense tensor-core kernel's layout
+    (``dense_layout`` in the source, which refuses a plan whose bytes
+    differ): the GAT layers' weight blocks, x's bf16 operand tile, one bf16
+    XW_h tile a head (128 rows of 64 features; at least 3, the room a
+    GraphConv layer takes for its rounded neighbour sums and each
+    warpgroup's copy of W_rel and W_root), the GAT layers' W_h att (float64),
+    every layer's bias, ln_scale and ln_bias (64 f32 each), a_src and a_dst
+    (128 x 4 f32), the bf16 alpha of each row's ``slots`` edges for 4
+    heads, and the skeleton's tables: A (J x J bf16), the slot of each
+    (dst, src) pair, the source of each of a node's 8 slots and its count
+    (bytes); and 1 KB to align the base to the 128-byte swizzle's
+    period."""
+    tile = DENSE_TC_ROWS * TC_FEATURES * 2
+    gat = (num_layers + 1) // 2
+    return (gat * heads * TC_BLOCK + tile + max(heads, 3) * tile
+            + gat * heads * 2 * TC_FEATURES * 8
+            + num_layers * 3 * TC_FEATURES * 4
+            + 2 * DENSE_TC_ROWS * DENSE_TC_MAX_HEADS * 4
+            + DENSE_TC_ROWS * slots * DENSE_TC_MAX_HEADS * 2
+            + _round16(2 * j * j) + _round16(j * j)
+            + DENSE_TC_MAX_SLOTS * j + _round16(j) + 1024)
+
+
+def dense_tc_plan(j: int, f: int, heads: int, slots: int,
+                  num_layers: int = 5) -> dict:
+    """Launch plan of the dense tensor-core kernel (bf16 mode of
+    :func:`gcn_stack` and :func:`gcn_stack_fwd`) for one skeleton: a tile is
+    the most whole graphs whose graph-major rows fit 128 (``graphs``,
+    ``rows``), zero-padded to 128 rows (``padded_rows``, two 64-row M
+    tiles) and to 64 features; ``slots`` is the most edges of A + I that end
+    at one node (:func:`edge_routing`), ``smem_bytes`` the block's shared
+    memory with the GAT layers' weights resident.  Raises where that does not
+    fit, or for F, H or J the kernel does not take.  The grid is one
+    persistent block an SM, at most one a tile."""
+    if f % 4 or not 0 < f <= TC_FEATURES:
+        raise ValueError(f'gcn_stack: the tensor-core kernel takes '
+                         f'F % 4 == 0 and F <= {TC_FEATURES}, not F={f}')
+    if not 0 < heads <= DENSE_TC_MAX_HEADS:
+        raise ValueError(f'gcn_stack: the tensor-core kernel takes at most '
+                         f'{DENSE_TC_MAX_HEADS} heads, not {heads}')
+    if not 0 < j <= DENSE_TC_ROWS or not 0 < slots <= min(
+            j, DENSE_TC_MAX_SLOTS):
+        raise ValueError(f'gcn_stack: the tensor-core kernel takes graphs '
+                         f'of at most {DENSE_TC_ROWS} nodes with at most '
+                         f'{DENSE_TC_MAX_SLOTS} edges into a node, self-loop '
+                         f'included, not J={j} with {slots}')
+    nbytes = _dense_tc_smem_bytes(j, heads, num_layers, slots)
+    if nbytes > TC_SMEM_LIMIT:
+        raise ValueError(f'gcn_stack: J={j}, heads={heads}, layers='
+                         f'{num_layers}, slots={slots} need {nbytes} bytes '
+                         f'of shared memory, over {TC_SMEM_LIMIT}')
+    graphs = DENSE_TC_ROWS // j
+    return dict(graphs=graphs, rows=j * graphs, padded_rows=DENSE_TC_ROWS,
+                slots=slots, smem_bytes=nbytes, threads=TC_THREADS)
 
 
 def swizzle_block(block: torch.Tensor) -> torch.Tensor:
@@ -539,9 +645,7 @@ def gcn_stack_edge(x: torch.Tensor, params: torch.Tensor,
         return gcn_stack_edge_plain(xf, params, adjacency, heads, num_layers,
                                     precise).reshape(x.shape)
     from a2m_torch import _build
-    xf = xf.contiguous()
-    if xf.data_ptr() % 16:                  # the kernel loads float4
-        xf = xf.clone()
+    xf = _aligned(xf)
     params = params.contiguous()
     routing = edge_routing(adjacency)
     n, edges, conv_edges = xf.shape[0], routing['edges'], routing[
@@ -599,13 +703,29 @@ def edge_tc_info(smem_bytes: int) -> dict:
                 threads=out[3])
 
 
+def dense_tc_info(smem_bytes: int, stash: bool = False) -> dict:
+    """The dense tensor-core kernel as built (the forward, or the forward
+    with stash), on the card: registers and local (spill) bytes a thread,
+    blocks an SM at ``smem_bytes``, threads a block."""
+    import ctypes
+
+    from a2m_torch import _build
+    lib = _build.load('gcn_stack')
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.a2m_gcn_stack_tc_info(int(stash), smem_bytes, out),
+                 'gcn_stack_tc_info')
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                threads=out[3])
+
+
 def gcn_stack_fwd(x: torch.Tensor, params: torch.Tensor,
                   adjacency: torch.Tensor, heads: int, num_layers: int = 5,
                   precise: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward with stash on (N, J, F) f32: ``(y, xs)``, ``xs``
     (L - 1, N, J, F) the inputs of layers 2..L.  CUDA tensors launch the
-    stash kernel, CPU tensors run :func:`gcn_stack_fwd_plain`."""
+    stash kernel (:func:`gcn_stack`'s with the stores: the same ``y``, bit
+    for bit), CPU tensors run :func:`gcn_stack_fwd_plain`."""
     _check_stack_args('gcn_stack_fwd', x, params, adjacency, heads,
                       num_layers)
     if x.dim() != 3:
@@ -615,16 +735,21 @@ def gcn_stack_fwd(x: torch.Tensor, params: torch.Tensor,
                                    precise)
     from a2m_torch import _build
     n, j, f = x.shape
-    x, params, adjacency = (x.contiguous(), params.contiguous(),
+    x, params, adjacency = (_aligned(x), params.contiguous(),
                             adjacency.contiguous())
     y = torch.empty_like(x)
     xs = torch.empty((num_layers - 1, n, j, f), dtype=x.dtype,
                      device=x.device)
     lib = _build.load('gcn_stack')
-    code = lib.a2m_gcn_stack_fwd(
-        x.data_ptr(), y.data_ptr(), xs.data_ptr(), params.data_ptr(),
-        adjacency.data_ptr(), n, j, f, heads, num_layers, int(precise),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if precise:
+        code = lib.a2m_gcn_stack_fwd(
+            x.data_ptr(), y.data_ptr(), xs.data_ptr(), params.data_ptr(),
+            adjacency.data_ptr(), n, j, f, heads, num_layers, stream)
+    else:
+        code = lib.a2m_gcn_stack_fwd_tc(
+            x.data_ptr(), y.data_ptr(), xs.data_ptr(),
+            *_dense_tc_args(x, params, adjacency, heads, num_layers), stream)
     _build.check(lib, code, 'gcn_stack_fwd')
     gcn_stack_fwd.launches += 1
     return y, xs

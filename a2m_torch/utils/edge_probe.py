@@ -1,20 +1,26 @@
-"""Where the tensor-core edge-form kernel (K5's bf16 mode,
-``csrc/gcn_stack_edge.cu``) spends its cycles, and what its near-tie
-recomputation does to its distance from the plain version.
+"""Where a tensor-core GCN stack kernel spends its cycles, and what its
+near-tie recomputation does to its distance from the plain version: K5's
+bf16 mode (the edge form, ``csrc/gcn_stack_edge.cu``) or, with
+``--dense``, K1's (``csrc/gcn_stack.cu``).
 
 Run on the card, from the repository root::
 
-    python -m a2m_torch.utils.edge_probe
+    python -m a2m_torch.utils.edge_probe [--dense]
 
 It builds two more variants of the source beside the port's own library
 (``build/a2m_torch/probe/``): one with ``-DA2M_TC_PROFILE``, whose thread 0
-of every block adds the clock cycles between consecutive barriers to a
-counter per phase (tile load, GAT products, softmax statistics, value path
-and LayerNorm, neighbour sums, GraphConv products and LayerNorm, store),
-and one with ``-DA2M_TC_TIE_ULPS=-1``, which never recomputes a near-tie
-element in k order.  For J in {10, 42} at the serving shapes (N = 13,824
-graphs, F = 64, H = 4, seeded parameters at the scale of trained ones) it
-prints the cycles per block of each phase (mean over the first 132
+of every block adds the clock cycles between consecutive points to a
+counter per phase (K5, barrier to barrier: tile load, GAT products,
+softmax statistics, value path and LayerNorm, neighbour sums, GraphConv
+products and LayerNorm, store; K1: tile load, GAT products, the barrier
+after them, attention, its apply, LayerNorm, the barrier and operand
+store after it, neighbour sums, GraphConv products, LayerNorm, the
+barrier and operand store after it, store; a phase that ends at no
+barrier is warp 0's own), and one with ``-DA2M_TC_TIE_ULPS=-1``, which
+never recomputes a near-tie element in k order.  For J in {10, 42} at the
+path's shapes (K5: the serving call's N = 13,824 graphs; K1: the one-window
+call's N = 8192; F = 64, H = 4, seeded parameters at the scale of trained
+ones) it prints the cycles per block of each phase (mean over the first 132
 blocks), the kernel's ms (CUDA events, 10 calls after 2) as built and as
 profiled, and for the port's library and the variant without recomputation
 the mean rule's share: mean|kernel - plain bf16| over mean|plain bf16 -
@@ -37,8 +43,23 @@ from a2m_torch import _build, constants
 from a2m_torch.nn import gcn_kernel as gk
 from a2m_torch.utils.conv1d_probe import cuda_ms
 
-PHASES = ('load', 'gat_products', 'gat_statistics', 'gat_value_norm',
-          'conv_neighbours', 'conv_products_norm', 'store')
+#: per kernel: source, its tensor-core entry, wrapper, plain version,
+#: graphs, profiled phases and the counters a block
+KERNELS = {
+    'edge': dict(source='gcn_stack_edge', entry='a2m_gcn_stack_edge_tc',
+                 fn=gk.gcn_stack_edge, plain=gk.gcn_stack_edge_plain,
+                 n=13824,
+                 phases=('load', 'gat_products', 'gat_statistics',
+                         'gat_value_norm', 'conv_neighbours',
+                         'conv_products_norm', 'store'), counters=8),
+    'dense': dict(source='gcn_stack', entry='a2m_gcn_stack_tc',
+                  fn=gk.gcn_stack, plain=gk.gcn_stack_plain, n=8192,
+                  phases=('load', 'gat_products', 'gat_barrier',
+                          'gat_attention', 'gat_apply', 'gat_norm',
+                          'gat_barrier_store', 'conv_neighbours',
+                          'conv_products', 'conv_norm', 'conv_barrier_store',
+                          'store'), counters=16),
+}
 VARIANTS = {'profiled': ['-DA2M_TC_PROFILE'],
             'no_recompute': ['-DA2M_TC_TIE_ULPS=-1']}
 
@@ -63,14 +84,14 @@ def stack_params(f: int, heads: int, gen: torch.Generator) -> torch.Tensor:
     return gk.pack_params(layers)
 
 
-def build_variants() -> dict:
+def build_variants(source: str) -> dict:
     """The variant libraries, compiled in parallel, bound like the port's."""
     out_dir = _build.BUILD_DIR / 'probe'
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC / 'gcn_stack_edge.cu'
+    src = _build.CSRC / f'{source}.cu'
     procs = {name: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, *flags, '-o',
-         str(out_dir / f'libgcn_stack_edge_{name}.so'), str(src)],
+         str(out_dir / f'lib{source}_{name}.so'), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, flags in VARIANTS.items()}
     libs = {}
@@ -78,8 +99,8 @@ def build_variants() -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f'nvcc failed for the {name} variant:\n{log}')
-        lib = ctypes.CDLL(str(out_dir / f'libgcn_stack_edge_{name}.so'))
-        for fn, argtypes in _build.SIGNATURES['gcn_stack_edge'].items():
+        lib = ctypes.CDLL(str(out_dir / f'lib{source}_{name}.so'))
+        for fn, argtypes in _build.SIGNATURES[source].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.a2m_error_string.argtypes = [ctypes.c_int]
@@ -89,14 +110,23 @@ def build_variants() -> dict:
 
 
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--dense', action='store_true',
+                    help="K1's tensor-core kernel in place of K5's")
+    kind = 'dense' if ap.parse_args().dense else 'edge'
+    kernel = KERNELS[kind]
+    source, fn, plain = kernel['source'], kernel['fn'], kernel['plain']
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader', '--id=0'],
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
-    libs = {'port': _build.load('gcn_stack_edge'), **build_variants()}
+    libs = {'port': _build.load(source), **build_variants(source)}
     prof = libs['profiled']
-    prof.a2m_gcn_stack_edge_tc_profile.argtypes = [ctypes.c_void_p]
-    f, heads, n = 64, 4, 13824
+    read_profile = getattr(prof, f'{kernel["entry"]}_profile')
+    reset_profile = getattr(prof, f'{kernel["entry"]}_profile_reset')
+    read_profile.argtypes = [ctypes.c_void_p]
+    f, heads, n = 64, 4, kernel['n']
     gen = torch.Generator().manual_seed(11)
     skeletons = {10: constants.body_edges(), 42: constants.hand_edges()}
     result = {}
@@ -106,15 +136,15 @@ def main() -> None:
             a = torch.as_tensor(constants.adjacency_from_edges(edges,
                                                                j)).cuda()
             x = torch.randn(n, j, f, generator=gen).cuda()
-            ref = gk.gcn_stack_edge_plain(x, params, a, heads)
-            gap = (ref - gk.gcn_stack_edge_plain(
-                x, params, a, heads, precise=True)).abs().mean().item()
+            ref = plain(x, params, a, heads)
+            gap = (ref - plain(x, params, a, heads,
+                               precise=True)).abs().mean().item()
             row = {}
             for name, lib in libs.items():
-                _build._loaded['gcn_stack_edge'] = lib
-                got = gk.gcn_stack_edge(x, params, a, heads)
+                _build._loaded[source] = lib
+                got = fn(x, params, a, heads)
                 row[f'{name}_ms'] = cuda_ms(
-                    lambda: gk.gcn_stack_edge(x, params, a, heads), 10)
+                    lambda: fn(x, params, a, heads), 10)
                 if name != 'profiled':
                     row[f'{name}_mean_share'] = \
                         (got - ref).abs().mean().item() / gap
@@ -125,16 +155,16 @@ def main() -> None:
                     row['graphs_above_0.04'] = (graph > 0.04).float(
                     ).mean().item()
                     row['largest_graph_share'] = graph.max().item()
-            _build._loaded['gcn_stack_edge'] = prof
-            prof.a2m_gcn_stack_edge_tc_profile_reset()
-            gk.gcn_stack_edge(x, params, a, heads)
+            _build._loaded[source] = prof
+            reset_profile()
+            fn(x, params, a, heads)
             torch.cuda.synchronize()
-            counters = np.zeros((1024, 8), np.uint64)
-            _build.check(prof, prof.a2m_gcn_stack_edge_tc_profile(
-                counters.ctypes.data), 'edge_probe')
+            counters = np.zeros((1024, kernel['counters']), np.uint64)
+            _build.check(prof, read_profile(counters.ctypes.data),
+                         'edge_probe')
             cycles = counters[:132].astype(np.float64).mean(0)
             row['cycles_per_block'] = {p: float(c) for p, c in
-                                       zip(PHASES, cycles)}
+                                       zip(kernel['phases'], cycles)}
             result[f'J={j}'] = row
             cycles = ' '.join(f'{p}={c:.0f}' for p, c in
                               row['cycles_per_block'].items())
@@ -143,8 +173,9 @@ def main() -> None:
                 if not isinstance(v, dict)) + f'; cycles per block: {cycles}',
                 flush=True)
     finally:
-        _build._loaded['gcn_stack_edge'] = libs['port']
-    print(json.dumps({'edge_probe': result, 'device': smi}))
+        _build._loaded[source] = libs['port']
+    print(json.dumps({'edge_probe': result, 'kernel': kind, 'n': n,
+                      'device': smi}))
 
 
 if __name__ == '__main__':

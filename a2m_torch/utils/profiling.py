@@ -33,11 +33,11 @@ import torch
 CATEGORIES = (
     ('gcn_stack_bwd', ('gcn_stack_bwd_kernel', 'transpose_weights_kernel',
                        'reduce_partials_kernel')),
-    ('gcn_stack_fwd', ('gcn_stack_kernel<false, true>',
-                       'gcn_stack_kernel<true, true>')),
+    ('gcn_stack_fwd', ('gcn_stack_kernel<true>',
+                       'gcn_stack_tc_kernel<true>')),
     ('gcn_stack_edge', ('gcn_stack_edge_kernel',
                         'gcn_stack_edge_tc_kernel')),
-    ('gcn_stack', ('gcn_stack_kernel',)),
+    ('gcn_stack', ('gcn_stack_kernel', 'gcn_stack_tc_kernel')),
     ('log_mel', ('log_mel_fft_kernel',)),
     ('convolution', ('conv', 'cudnn', 'implicit_gemm', 'fprop', 'dgrad',
                      'wgrad', 'winograd', 'fft')),

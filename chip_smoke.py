@@ -9,11 +9,18 @@ each fatal on failure:
 1. the card's name and power limit;
 2. build every kernel of the port from ``a2m_torch/csrc/`` (one ``nvcc``
    per source, in parallel);
-3. ``gcn_stack`` (K1) against its plain PyTorch version on the card at the
-   main-path shapes (N = 8192 graphs, J in {10, 42}, F = 64, H = 4) and at
-   a ragged N, f32 operands (2e-5) and bf16 operands (1% of max|ref|, and a
-   mean error under 1% of the plain version's mean bf16-vs-f32 gap), timed
-   with CUDA events beside its bound;
+3. ``gcn_stack`` (K1; bf16 operands on the tensor cores, f32 on the CUDA
+   cores): the HGMMA instructions in its library's SASS (``cuobjdump
+   -sass``, more than 0), its launch plan (graphs a tile, rows, shared
+   bytes, blocks an SM, registers, spills, also of the stash kernel K3),
+   then against its plain PyTorch version at the main-path shapes (N = 8192
+   graphs, J in {10, 42}, F = 64, H = 4), at N = 1001 and at N in {1,
+   T - 1, T + 1} (T graphs a tile), the smaller inputs being the first
+   graphs of the largest: f32 operands within 2e-5, bf16 operands within 1%
+   of max|ref| and, at N >= 1001, a mean error under 1% of the plain
+   version's mean bf16-vs-f32 gap (the mean rule), two runs bit-equal,
+   every smaller call bit-equal to the first graphs of the N = 8192 call;
+   timed with CUDA events beside its bound;
 4. ``gcn_stack_fwd`` (K3, the forward with stash) and ``gcn_stack_bwd`` (K4,
    the backward) at the same shapes and modes: K3's ``y`` equals K1's, ``y``
    and ``xs`` match the plain version; K4's ``dx`` (2e-4 of max|ref| in f32)
@@ -167,9 +174,11 @@ def device_line() -> str:
 
 
 def gcn_phase() -> dict:
+    """K1 against its plain version; returns its entry of the kernels
+    line."""
     import torch
     from a2m_torch import constants
-    from a2m_torch.nn import gcn_kernel
+    from a2m_torch.nn import gcn_kernel as gk
     from a2m_torch.utils.edge_probe import stack_params
 
     f, heads, n_main = 64, 4, 128 * 64
@@ -177,58 +186,43 @@ def gcn_phase() -> dict:
     adj = {10: constants.adjacency_from_edges(constants.body_edges(), 10),
            42: constants.adjacency_from_edges(constants.hand_edges(), 42)}
     entry = dict(ms=0.0, plain_ms=0.0, flops=0, bytes=0, max_abs_err=0.0)
+    hgmma = hgmma_count('gcn_stack')
+    print(f'gcn_stack: {hgmma} HGMMA instructions in the built library\'s '
+          f'SASS', flush=True)
+    require(hgmma > 0, 'gcn_stack: no HGMMA in the built library')
     for j in (10, 42):
         params = stack_params(f, heads, gen).cuda()
         a = torch.as_tensor(adj[j]).cuda()
-        for n in (n_main, 1001):
-            x = torch.randn(n, j, f, generator=gen).cuda()
-            ref32 = gcn_kernel.gcn_stack_plain(x, params, a, heads,
-                                               precise=True)
-            for precise in (True, False):
-                got = gcn_kernel.gcn_stack(x, params, a, heads,
-                                           precise=precise)
-                ref = gcn_kernel.gcn_stack_plain(x, params, a, heads,
-                                                 precise=precise)
-                torch.cuda.synchronize()
-                err = (got - ref).abs().max().item()
-                scale = ref.abs().max().item()
-                tol = 2e-5 if precise else 0.01 * scale
-                print(f'gcn_stack J={j} N={n} precise={precise}: '
-                      f'max_abs_err={err:.3e} (max|ref| {scale:.3f}, '
-                      f'tol {tol:.3e})', flush=True)
-                require(bool(torch.isfinite(got).all()), 'gcn_stack: '
-                        'non-finite output')
-                require(err <= tol, f'gcn_stack J={j} N={n} precise='
-                        f'{precise}: {err} > {tol}')
-                if precise:
-                    continue
-                # The max tolerance alone is of the order of the whole
-                # bf16-vs-f32 gap: hold the kernel's mean error far below
-                # the mean gap, so bf16 rounding in the wrong place fails.
-                mean_err = (got - ref).abs().mean().item()
-                gap = (ref - ref32).abs().mean().item()
-                print(f'gcn_stack J={j} N={n} bf16: mean|kernel - plain '
-                      f'bf16| {mean_err:.3e}, mean|plain bf16 - plain f32| '
-                      f'{gap:.3e} (tol {BF16_MEAN_SHARE} of it)', flush=True)
-                require(mean_err <= BF16_MEAN_SHARE * gap,
-                        f'gcn_stack J={j} N={n} bf16: mean error {mean_err} '
-                        f'not below {BF16_MEAN_SHARE} x the gap {gap}')
-                if n == n_main:
-                    entry['max_abs_err'] = max(entry['max_abs_err'], err)
+        plan = gk.dense_tc_plan(j, f, heads, gk.edge_routing(a)['slots'])
+        info, stash = (gk.dense_tc_info(plan['smem_bytes'], s)
+                       for s in (False, True))
+        print(f'gcn_stack J={j}: bf16 mode (tensor cores): {plan["graphs"]} '
+              f'graphs a tile, {plan["rows"]} rows padded to '
+              f'{plan["padded_rows"]}, {plan["slots"]} slots a row, '
+              f'{plan["smem_bytes"]} B shared, {info["blocks_per_sm"]} block '
+              f'an SM of {info["threads"]} threads, {info["registers"]} '
+              f'registers, {info["local_bytes"]} B local (spills); with the '
+              f'stash (K3) {stash["registers"]} registers, '
+              f'{stash["local_bytes"]} B local', flush=True)
+        # N = 1001 and N in {1, T - 1, T + 1}: the first graphs of N = 8192
+        x_main = torch.randn(n_main, j, f, generator=gen).cuda()
+        small = sorted({1, plan['graphs'] - 1, plan['graphs'] + 1} - {0})
+        hold_to_plain('gcn_stack', gk.gcn_stack, gk.gcn_stack_plain, x_main,
+                      params, a, heads, (n_main, 1001, *small), entry)
         # the main path's mode: bf16 operands, N = B * T graphs
         x = torch.randn(n_main, j, f, generator=gen).cuda()
-        ms = cuda_ms(lambda: gcn_kernel.gcn_stack(x, params, a, heads))
-        plain = cuda_ms(lambda: gcn_kernel.gcn_stack_plain(x, params, a,
-                                                           heads))
-        ms_f32 = cuda_ms(lambda: gcn_kernel.gcn_stack(x, params, a, heads,
-                                                      precise=True))
-        flops = gcn_kernel.stack_flops(n_main, adj[j], f, heads)
-        nbytes = gcn_kernel.stack_bytes(n_main, j, f, heads)
+        ms = cuda_ms(lambda: gk.gcn_stack(x, params, a, heads))
+        plain = cuda_ms(lambda: gk.gcn_stack_plain(x, params, a, heads))
+        ms_f32 = cuda_ms(lambda: gk.gcn_stack(x, params, a, heads,
+                                              precise=True))
+        ms_again = cuda_ms(lambda: gk.gcn_stack(x, params, a, heads))
+        flops = gk.stack_flops(n_main, adj[j], f, heads)
+        nbytes = gk.stack_bytes(n_main, j, f, heads)
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
-        print(f'gcn_stack J={j} N={n_main}: kernel_ms={ms:.4f} '
-              f'(f32 operands {ms_f32:.4f}) plain_ms={plain:.4f} '
-              f'bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, '
-              f'{nbytes / 1e6:.1f} MB)', flush=True)
+        print(f'gcn_stack J={j} N={n_main}: kernel_ms={ms:.4f} (again '
+              f'{ms_again:.4f}; f32 operands {ms_f32:.4f}) plain_ms='
+              f'{plain:.4f} bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} '
+              f'GFLOP, {nbytes / 1e6:.1f} MB)', flush=True)
         entry['ms'] += ms
         entry['plain_ms'] += plain
         entry['flops'] += flops
@@ -236,12 +230,82 @@ def gcn_phase() -> dict:
     entry['bound_ms'], entry['bound_by'] = bound(entry.pop('flops'),
                                                  entry.pop('bytes'),
                                                  PEAK_BF16)
+    print(f'gcn_stack both stacks N={n_main}: kernel_ms={entry["ms"]:.4f}, '
+          f'bound_ms={entry["bound_ms"]:.4f}', flush=True)
     return entry
 
 
 def rel_err(got, ref) -> tuple[float, float]:
     """max |got - ref| and max |ref|."""
     return (got - ref).abs().max().item(), ref.abs().max().item()
+
+
+def hold_to_plain(name: str, fn, plain, x_main, params, a, heads: int,
+                  sizes, entry: dict, also=None) -> None:
+    """Phases 3 and 8: a GCN stack kernel ``fn`` against its plain version
+    ``plain`` at every N of ``sizes``, the largest first (the others are its
+    first graphs, so their outputs are its first rows, bit for bit: a row
+    depends on its own graph, not on the tile or N), f32 operands then bf16:
+    finite, two runs bit-equal, within 2e-5 (f32) or 1% of max|ref| and, at
+    N >= 1001, the mean rule (bf16).  ``also(tag, x, got)`` adds a check of
+    the f32 mode; the largest bf16 error of the largest N goes to
+    ``entry``."""
+    import torch
+    n_main, j = sizes[0], x_main.shape[1]
+    full = {}
+    for n in sizes:
+        x = x_main[:n]
+        ref32 = plain(x, params, a, heads, precise=True)
+        for precise in (True, False):
+            tag = f'{name} J={j} N={n} precise={precise}'
+            got = fn(x, params, a, heads, precise=precise)
+            again = fn(x, params, a, heads, precise=precise)
+            ref = plain(x, params, a, heads, precise=precise)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(got).all()),
+                    f'{tag}: non-finite output')
+            require(bool(torch.equal(got, again)),
+                    f'{tag}: two runs on the same input differ')
+            if n == n_main:
+                full[precise] = got
+            else:
+                require(bool(torch.equal(got, full[precise][:n])),
+                        f'{tag}: differs from the first {n} graphs of the '
+                        f'N={n_main} call')
+            err, scale = rel_err(got, ref)
+            tol = 2e-5 if precise else 0.01 * scale
+            print(f'{tag}: bit-equal over two runs'
+                  + ('' if n == n_main else f' and to the first {n} graphs '
+                     f'of N={n_main}')
+                  + f'; max_abs_err={err:.3e} (max|ref| {scale:.3f}, tol '
+                  f'{tol:.3e})', flush=True)
+            require(err <= tol, f'{tag}: {err} > {tol}')
+            if precise:
+                if also is not None:
+                    also(tag, x, got)
+                continue
+            # The max tolerance alone is of the order of the whole
+            # bf16-vs-f32 gap: hold the kernel's mean error far below the
+            # mean gap, so bf16 rounding in the wrong place fails.  The rule
+            # holds a population of graphs: below ~1,000 one graph whose
+            # roundings tie differently (f32 summation order) decides it
+            # alone; the small calls are the first rows of the largest, bit
+            # for bit (above), which the rule holds.
+            mean_err = (got - ref).abs().mean().item()
+            gap = (ref - ref32).abs().mean().item()
+            gated = n >= 1001
+            print(f'{tag}: mean|kernel - plain bf16| {mean_err:.3e}, '
+                  f'mean|plain bf16 - plain f32| {gap:.3e} (share '
+                  f'{mean_err / gap:.4f}; '
+                  + (f'tol {BF16_MEAN_SHARE})' if gated else
+                     f'{n} graphs: printed, the N={n_main} call holds '
+                     f'them)'), flush=True)
+            if gated:
+                require(mean_err <= BF16_MEAN_SHARE * gap,
+                        f'{tag}: mean error {mean_err} not below '
+                        f'{BF16_MEAN_SHARE} x the gap {gap}')
+            if n == n_main:
+                entry['max_abs_err'] = max(entry['max_abs_err'], err)
 
 
 def split_params(flat, f: int, heads: int):
@@ -820,71 +884,22 @@ def edge_phase() -> dict:
               f'{info["registers"]} registers, {info["local_bytes"]} B local '
               f'(spills); f32 mode (CUDA cores): {gk.edge_tile(a, f)} graphs '
               f'a block', flush=True)
-        # N = 1001 and N in {1, T - 1, T + 1} are the first graphs of the
-        # N = 13,824 input: their outputs are the first rows of its output,
-        # bit for bit (a row depends on its own graph, not on T or N)
+        # N = 1001 and N in {1, T - 1, T + 1}: the first graphs of N = 13,824
         x_main = torch.randn(n_main, j, f, generator=gen).cuda()
         small = sorted({1, plan['graphs'] - 1, plan['graphs'] + 1} - {0})
-        full = {}
-        for n in (n_main, 1001, *small):
-            x = x_main[:n]
-            ref32 = gk.gcn_stack_edge_plain(x, params, a, heads, precise=True)
-            for precise in (True, False):
-                tag = f'gcn_stack_edge J={j} N={n} precise={precise}'
-                got = gk.gcn_stack_edge(x, params, a, heads, precise=precise)
-                again = gk.gcn_stack_edge(x, params, a, heads,
-                                          precise=precise)
-                ref = gk.gcn_stack_edge_plain(x, params, a, heads,
-                                              precise=precise)
-                torch.cuda.synchronize()
-                require(bool(torch.isfinite(got).all()),
-                        f'{tag}: non-finite output')
-                require(bool(torch.equal(got, again)),
-                        f'{tag}: two runs on the same input differ')
-                if n == n_main:
-                    full[precise] = got
-                else:
-                    require(bool(torch.equal(got, full[precise][:n])),
-                            f'{tag}: differs from the first {n} graphs of '
-                            f'the N={n_main} call')
-                err, scale = rel_err(got, ref)
-                tol = 2e-5 if precise else 0.01 * scale
-                print(f'{tag}: bit-equal over two runs'
-                      + ('' if n == n_main else f' and to the first {n} '
-                         f'graphs of N={n_main}')
-                      + f'; max_abs_err={err:.3e} (max|ref| {scale:.3f}, '
-                      f'tol {tol:.3e})', flush=True)
-                require(err <= tol, f'{tag}: {err} > {tol}')
-                if precise:
-                    # with f32 operands the edge form and the dense kernel
-                    # compute one function up to summation order
-                    dense = gk.gcn_stack(x, params, a, heads, precise=True)
-                    err_k1 = (got - dense).abs().max().item()
-                    print(f'{tag}: max|K5 - K1|={err_k1:.3e} (tol 2e-5)',
-                          flush=True)
-                    require(err_k1 <= 2e-5, f'{tag}: differs from gcn_stack '
-                            f'by {err_k1}')
-                    continue
-                mean_err = (got - ref).abs().mean().item()
-                gap = (ref - ref32).abs().mean().item()
-                # The mean rule holds a population of graphs: below ~1,000
-                # graphs one graph whose bf16 roundings tie differently
-                # (f32 summation order) decides it alone.  The small-N
-                # outputs are the first rows of the N = 13,824 output, bit
-                # for bit (above), which the rule holds.
-                gated = n >= 1001
-                print(f'{tag}: mean|kernel - plain bf16| {mean_err:.3e}, '
-                      f'mean|plain bf16 - plain f32| {gap:.3e} (share '
-                      f'{mean_err / gap:.4f}; '
-                      + (f'tol {BF16_MEAN_SHARE})' if gated else
-                         f'{n} graphs: printed, the N={n_main} call holds '
-                         f'them)'), flush=True)
-                if gated:
-                    require(mean_err <= BF16_MEAN_SHARE * gap,
-                            f'{tag}: mean error {mean_err} not below '
-                            f'{BF16_MEAN_SHARE} x the gap {gap}')
-                if n == n_main:
-                    entry['max_abs_err'] = max(entry['max_abs_err'], err)
+
+        def against_k1(tag, x, got):
+            # with f32 operands the edge form and the dense kernel compute
+            # one function up to summation order
+            err_k1 = (got - gk.gcn_stack(x, params, a, heads,
+                                         precise=True)).abs().max().item()
+            print(f'{tag}: max|K5 - K1|={err_k1:.3e} (tol 2e-5)', flush=True)
+            require(err_k1 <= 2e-5, f'{tag}: differs from gcn_stack by '
+                    f'{err_k1}')
+
+        hold_to_plain('gcn_stack_edge', gk.gcn_stack_edge,
+                      gk.gcn_stack_edge_plain, x_main, params, a, heads,
+                      (n_main, 1001, *small), entry, also=against_k1)
         # the serving path's mode: bf16 operands, N = streams x windows x T
         x = torch.randn(n_main, j, f, generator=gen).cuda()
         ms = cuda_ms(lambda: gk.gcn_stack_edge(x, params, a, heads))
