@@ -39,8 +39,12 @@ SIGNATURES = {
     },
     'gcn_stack_bwd': {
         'a2m_gcn_stack_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _P],
-        'a2m_gcn_stack_bwd_blocks': [_I, _I, _I, _I, _I, _I],
+                              _I, _I, _I, _I, _P],
+        'a2m_gcn_stack_bwd_blocks': [_I, _I, _I, _I, _I],
+        'a2m_gcn_stack_bwd_tc': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P],
+        'a2m_gcn_stack_bwd_tc_info': [_I, _P],
     },
     'gcn_stack_edge': {
         'a2m_gcn_stack_edge': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -14,7 +14,9 @@ the 5-layer GAT/GraphConv stack with LayerNorm, LeakyReLU and residual on
 * :func:`gcn_stack_bwd` (``csrc/gcn_stack_bwd.cu``) replaces ``_bwd_kernel``
   (``:557``, called by ``_bwd_call``): the reverse walk that recomputes each
   layer from its stored input and returns ``dx`` and every parameter
-  gradient;
+  gradient.  With bf16 operands on the tensor cores, on the launch plan of
+  :func:`dense_bwd_tc_plan` (the forward's tiles) and the weights of
+  :func:`edge_tc_weights`; with f32 operands on the CUDA cores;
 * :func:`gcn_stack_edge` (``csrc/gcn_stack_edge.cu``) replaces
   ``_kernel_edge`` (``:879``, called by ``_fused_impl_edge``): the
   gradient-free forward in edge form, a tile of graphs in joint-major
@@ -186,7 +188,8 @@ def edge_routing(adjacency: torch.Tensor) -> dict:
     dst, ptr (J + 1), conv_src, conv_ptr (J + 1)] and ``conv_w`` f32, with
     ``ptr`` the per-destination ranges of the E edges and ``conv_*`` the
     same for the Ec nonzero entries of A itself (GraphConv's A @ X);
-    ``slots`` the most edges of A + I that end at one node."""
+    ``slots`` the most edges of A + I that end at one node, ``out_slots``
+    the most that start at one."""
     key = (adjacency.data_ptr(), adjacency._version, adjacency.device)
     if key not in _routing or _routing[key]['adjacency'] is not adjacency:
         adj = adjacency.detach().cpu().numpy()
@@ -210,6 +213,7 @@ def edge_routing(adjacency: torch.Tensor) -> dict:
                                    device=dev),
             edges=len(src), conv_edges=len(csrc),
             slots=int(np.diff(ptr).max()),
+            out_slots=int(np.bincount(src, minlength=j).max()),
             # held, so that no other tensor takes this key's address
             adjacency=adjacency)
     return _routing[key]
@@ -552,26 +556,80 @@ def dense_tc_plan(j: int, f: int, heads: int, slots: int,
     memory with the GAT layers' weights resident.  Raises where that does not
     fit, or for F, H or J the kernel does not take.  The grid is one
     persistent block an SM, at most one a tile."""
+    return _dense_plan('gcn_stack', j, f, heads, slots, num_layers,
+                       _dense_tc_smem_bytes(j, heads, num_layers, slots))
+
+
+def _dense_plan(what: str, j: int, f: int, heads: int, slots: int,
+                num_layers: int, nbytes: int) -> dict:
+    """The dense tensor-core kernels' tile (whole graphs in 128 graph-major
+    rows) for ``slots`` edges a node and ``nbytes`` of shared memory, or
+    ValueError where the kernel does not take the shapes."""
     if f % 4 or not 0 < f <= TC_FEATURES:
-        raise ValueError(f'gcn_stack: the tensor-core kernel takes '
+        raise ValueError(f'{what}: the tensor-core kernel takes '
                          f'F % 4 == 0 and F <= {TC_FEATURES}, not F={f}')
     if not 0 < heads <= DENSE_TC_MAX_HEADS:
-        raise ValueError(f'gcn_stack: the tensor-core kernel takes at most '
+        raise ValueError(f'{what}: the tensor-core kernel takes at most '
                          f'{DENSE_TC_MAX_HEADS} heads, not {heads}')
     if not 0 < j <= DENSE_TC_ROWS or not 0 < slots <= min(
             j, DENSE_TC_MAX_SLOTS):
-        raise ValueError(f'gcn_stack: the tensor-core kernel takes graphs '
-                         f'of at most {DENSE_TC_ROWS} nodes with at most '
-                         f'{DENSE_TC_MAX_SLOTS} edges into a node, self-loop '
-                         f'included, not J={j} with {slots}')
-    nbytes = _dense_tc_smem_bytes(j, heads, num_layers, slots)
+        raise ValueError(f'{what}: the tensor-core kernel takes graphs of at '
+                         f'most {DENSE_TC_ROWS} nodes with at most '
+                         f'{DENSE_TC_MAX_SLOTS} edges into (and out of) a '
+                         f'node, self-loop included, not J={j} with {slots}')
     if nbytes > TC_SMEM_LIMIT:
-        raise ValueError(f'gcn_stack: J={j}, heads={heads}, layers='
+        raise ValueError(f'{what}: J={j}, heads={heads}, layers='
                          f'{num_layers}, slots={slots} need {nbytes} bytes '
                          f'of shared memory, over {TC_SMEM_LIMIT}')
     graphs = DENSE_TC_ROWS // j
     return dict(graphs=graphs, rows=j * graphs, padded_rows=DENSE_TC_ROWS,
                 slots=slots, smem_bytes=nbytes, threads=TC_THREADS)
+
+
+def _dense_bwd_tc_smem_bytes(j: int, heads: int, num_layers: int,
+                             slots: int) -> int:
+    """Shared bytes of the dense tensor-core backward's layout
+    (``bwd_layout`` in ``csrc/gcn_stack_bwd.cu``, which refuses a plan whose
+    bytes differ): one layer's weight blocks (H, at least 2), x's bf16
+    operand tile, one bf16 tile a head (XW_h, then d_XW_h; at least 2, for
+    GraphConv's neigh and d_neigh), the d_outh / d_h tile, the cotangent
+    (128 x 64 f32), one GAT layer's W_h att (float64), every GAT layer's
+    att_src, att_dst (f32), every layer's bias, ln_scale and ln_bias,
+    a_src, a_dst, d_a_src and d_a_dst (128 x 4 f32 each), the bf16 alpha
+    and the f32 d_e of each row's ``slots`` edges
+    for 4 heads, the block's sums X^T d_a (64 x 2 f32 a GAT head), the
+    column sums of 8 warps (3 x 64 f32 each), the skeleton's tables (A in
+    bf16, the slot of each (dst, src) pair, a node's sources and its
+    destinations with its slot in their lists, their counts) and 1 KB to
+    align the base to the 128-byte swizzle's period."""
+    tile = DENSE_TC_ROWS * TC_FEATURES * 2
+    gat = (num_layers + 1) // 2
+    rows = DENSE_TC_ROWS * DENSE_TC_MAX_HEADS
+    return (max(heads, 2) * (TC_BLOCK + tile) + 2 * tile
+            + DENSE_TC_ROWS * TC_FEATURES * 4 + heads * 2 * TC_FEATURES * 8
+            + gat * heads * 2 * TC_FEATURES * 4
+            + num_layers * 3 * TC_FEATURES * 4 + 4 * rows * 4
+            + rows * slots * (2 + 4) + gat * heads * TC_FEATURES * 2 * 4
+            + TC_THREADS // 32 * 3 * TC_FEATURES * 4
+            + _round16(2 * j * j) + _round16(j * j)
+            + 3 * DENSE_TC_MAX_SLOTS * j + 2 * _round16(j) + 1024)
+
+
+def dense_bwd_tc_plan(j: int, f: int, heads: int, slots: int,
+                      out_slots: int, num_layers: int = 5) -> dict:
+    """Launch plan of the dense tensor-core backward (bf16 mode of
+    :func:`gcn_stack_bwd`) for one skeleton: the forward's tile
+    (:func:`dense_tc_plan`: the most whole graphs that fit 128 graph-major
+    rows, zero-padded to 128 rows and 64 features); ``slots`` and
+    ``out_slots`` the most edges of A + I that end and that start at one
+    node (:func:`edge_routing`), ``smem_bytes`` the block's shared memory
+    with one layer's weights resident.  Raises where that does not fit, or
+    for F, H or J the kernel does not take.  The grid is one persistent
+    block an SM, at most one a tile."""
+    plan = _dense_plan('gcn_stack_bwd', j, f, heads,
+                       max(slots, out_slots), num_layers,
+                       _dense_bwd_tc_smem_bytes(j, heads, num_layers, slots))
+    return dict(plan, slots=slots)
 
 
 def swizzle_block(block: torch.Tensor) -> torch.Tensor:
@@ -718,6 +776,21 @@ def dense_tc_info(smem_bytes: int, stash: bool = False) -> dict:
                 threads=out[3])
 
 
+def dense_bwd_tc_info(smem_bytes: int) -> dict:
+    """The dense tensor-core backward as built, on the card: registers and
+    local (spill) bytes a thread, blocks an SM at ``smem_bytes``, threads a
+    block."""
+    import ctypes
+
+    from a2m_torch import _build
+    lib = _build.load('gcn_stack_bwd')
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.a2m_gcn_stack_bwd_tc_info(smem_bytes, out),
+                 'gcn_stack_bwd_tc_info')
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                threads=out[3])
+
+
 def gcn_stack_fwd(x: torch.Tensor, params: torch.Tensor,
                   adjacency: torch.Tensor, heads: int, num_layers: int = 5,
                   precise: bool = False
@@ -780,8 +853,9 @@ def gcn_stack_bwd(x0: torch.Tensor, xs: torch.Tensor, g: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Backward of the stack: ``(dx (N, J, F), dparams)`` with ``dparams``
     flat in :func:`pack_params` order.  CUDA tensors launch the backward
-    kernel (deterministic: the same inputs give bit-equal outputs), CPU
-    tensors run :func:`gcn_stack_bwd_plain`."""
+    kernel, on the tensor cores with bf16 operands and on the CUDA cores
+    with ``precise`` (both deterministic: the same inputs give bit-equal
+    outputs); CPU tensors run :func:`gcn_stack_bwd_plain`."""
     _check_stack_args('gcn_stack_bwd', x0, params, adjacency, heads,
                       num_layers)
     n, j, f = x0.shape
@@ -797,26 +871,45 @@ def gcn_stack_bwd(x0: torch.Tensor, xs: torch.Tensor, g: torch.Tensor,
         return gcn_stack_bwd_plain(x0, xs, g, params, adjacency, heads,
                                    num_layers, precise)
     from a2m_torch import _build
-    x0, xs, g = x0.contiguous(), xs.contiguous(), g.contiguous()
+    x0, xs, g = _aligned(x0), _aligned(xs), _aligned(g)
     params, adjacency = params.contiguous(), adjacency.contiguous()
     lib = _build.load('gcn_stack_bwd')
-    degree = max_degree(adjacency)
-    blocks = lib.a2m_gcn_stack_bwd_blocks(n, j, f, heads, degree,
-                                          int(precise))
-    if blocks <= 0:
-        raise RuntimeError(f'gcn_stack_bwd: no launch shape for J={j}, '
-                           f'F={f}, heads={heads} (shared memory)')
     p = params.numel()
     dx = torch.empty_like(x0)
     dparams = torch.empty_like(params)
-    # per-block partial parameter gradients, and the transposed weights
-    scratch = torch.empty((blocks + 1, p), dtype=torch.float32,
-                          device=x0.device)
-    code = lib.a2m_gcn_stack_bwd(
-        x0.data_ptr(), xs.data_ptr(), g.data_ptr(), params.data_ptr(),
-        adjacency.data_ptr(), dx.data_ptr(), dparams.data_ptr(),
-        scratch.data_ptr(), n, j, f, heads, num_layers, degree, blocks,
-        int(precise), torch.cuda.current_stream(x0.device).cuda_stream)
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    if precise:
+        degree = max_degree(adjacency)
+        blocks = lib.a2m_gcn_stack_bwd_blocks(n, j, f, heads, degree)
+        if blocks <= 0:
+            raise RuntimeError(f'gcn_stack_bwd: no launch shape for J={j}, '
+                               f'F={f}, heads={heads} (shared memory)')
+        # per-block partial parameter gradients, and the transposed weights
+        scratch = torch.empty((blocks + 1, p), dtype=torch.float32,
+                              device=x0.device)
+        code = lib.a2m_gcn_stack_bwd(
+            x0.data_ptr(), xs.data_ptr(), g.data_ptr(), params.data_ptr(),
+            adjacency.data_ptr(), dx.data_ptr(), dparams.data_ptr(),
+            scratch.data_ptr(), n, j, f, heads, num_layers, degree, blocks,
+            stream)
+    else:
+        routing = edge_routing(adjacency)
+        plan = dense_bwd_tc_plan(j, f, heads, routing['slots'],
+                                 routing['out_slots'], num_layers)
+        weights = edge_tc_weights(params, f, heads, num_layers)
+        sms = torch.cuda.get_device_properties(
+            x0.device).multi_processor_count
+        grid = max(1, min(-(-n // plan['graphs']), sms))
+        # per-block partial parameter gradients, added in block order
+        scratch = torch.empty((grid, p), dtype=torch.float32,
+                              device=x0.device)
+        code = lib.a2m_gcn_stack_bwd_tc(
+            x0.data_ptr(), xs.data_ptr(), g.data_ptr(), params.data_ptr(),
+            weights['blocks'].data_ptr(), weights['att'].data_ptr(),
+            routing['route'].data_ptr(), routing['conv_w'].data_ptr(),
+            dx.data_ptr(), dparams.data_ptr(), scratch.data_ptr(), n, j, f,
+            heads, num_layers, routing['edges'], routing['conv_edges'],
+            plan['graphs'], plan['slots'], plan['smem_bytes'], grid, stream)
     _build.check(lib, code, 'gcn_stack_bwd')
     gcn_stack_bwd.launches += 1
     return dx, dparams

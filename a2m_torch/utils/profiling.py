@@ -31,8 +31,8 @@ import torch
 
 #: kernel-name substrings -> category, first match wins
 CATEGORIES = (
-    ('gcn_stack_bwd', ('gcn_stack_bwd_kernel', 'transpose_weights_kernel',
-                       'reduce_partials_kernel')),
+    ('gcn_stack_bwd', ('gcn_stack_bwd_kernel', 'gcn_stack_bwd_tc_kernel',
+                       'transpose_weights_kernel', 'reduce_partials_kernel')),
     ('gcn_stack_fwd', ('gcn_stack_kernel<true>',
                        'gcn_stack_tc_kernel<true>')),
     ('gcn_stack_edge', ('gcn_stack_edge_kernel',

@@ -22,12 +22,18 @@ each fatal on failure:
    every smaller call bit-equal to the first graphs of the N = 8192 call;
    timed with CUDA events beside its bound;
 4. ``gcn_stack_fwd`` (K3, the forward with stash) and ``gcn_stack_bwd`` (K4,
-   the backward) at the same shapes and modes: K3's ``y`` equals K1's, ``y``
-   and ``xs`` match the plain version; K4's ``dx`` (2e-4 of max|ref| in f32)
+   the backward; bf16 operands on the tensor cores, f32 on the CUDA cores)
+   at the same shapes and modes: the HGMMA instructions in K4's library
+   (more than 0), its launch plan (graphs a tile, rows, shared bytes,
+   blocks an SM, registers, spills); K3's ``y`` equals K1's, ``y`` and
+   ``xs`` match the plain version; K4's ``dx`` (2e-4 of max|ref| in f32)
    and every parameter gradient (5e-4 of max(max|ref|, 1e-3)) match the
-   plain version on graphs away from LeakyReLU's kink, 1% and the mean rule
-   with bf16 operands; two K4 runs on the same input are bit-equal; both
-   timed beside their bounds;
+   plain version on graphs away from LeakyReLU's kink at N = 8192 and
+   1001, 1% and the mean rule with bf16 operands; two K4 runs on the same
+   input are bit-equal; at N in {1, T - 1, T + 1} (T graphs a tile, the
+   first graphs of the N = 8192 input) K4's ``dx`` is bit-equal to the
+   first rows of the N = 8192 call and over two runs, in both modes; both
+   timed beside their bounds, K4 in both modes;
 5. ``log_mel`` (K2, an FFT) against its plain version (the direct DFT) on
    the pose-rate strided spec at B = 128 and B = 1, 64 frames (1e-4; a
    second launch bit-equal to the first), timed at B = 128 beside the
@@ -356,9 +362,25 @@ def gcn_train_phase() -> tuple[dict, dict]:
            42: constants.adjacency_from_edges(constants.hand_edges(), 42)}
     fwd = dict(ms=0.0, plain_ms=0.0, flops=0, bytes=0, max_abs_err=0.0)
     bwd = dict(ms=0.0, plain_ms=0.0, flops=0, bytes=0, max_abs_err=0.0)
+    hgmma = hgmma_count('gcn_stack_bwd')
+    print(f'gcn_stack_bwd: {hgmma} HGMMA instructions in the built '
+          f'library\'s SASS', flush=True)
+    require(hgmma > 0, 'gcn_stack_bwd: no HGMMA in the built library')
     for j in (10, 42):
         params = stack_params(f, heads, gen).cuda()
         a = torch.as_tensor(adj[j]).cuda()
+        routing = gk.edge_routing(a)
+        plan = gk.dense_bwd_tc_plan(j, f, heads, routing['slots'],
+                                    routing['out_slots'])
+        info = gk.dense_bwd_tc_info(plan['smem_bytes'])
+        print(f'gcn_stack_bwd J={j}: bf16 mode (tensor cores): '
+              f'{plan["graphs"]} graphs a tile, {plan["rows"]} rows padded '
+              f'to {plan["padded_rows"]}, {plan["slots"]} slots a row, '
+              f'{plan["smem_bytes"]} B shared, {info["blocks_per_sm"]} block '
+              f'an SM of {info["threads"]} threads, {info["registers"]} '
+              f'registers, {info["local_bytes"]} B local (spills)',
+              flush=True)
+        main = {}                          # the N = 8192 call, both modes
         for n in (n_main, 1001):
             x = away_from_kink(torch.randn(n, j, f, generator=gen).cuda(),
                                params, a, heads)
@@ -436,6 +458,8 @@ def gcn_train_phase() -> tuple[dict, dict]:
                     require(int(over) <= BF16_KINK_SHARE * n,
                             f'gcn_stack_bwd {tag}: dx above {tol_dx} on '
                             f'{int(over)} graphs')
+                if n == n_main:
+                    main[precise] = (x, xs_ref, g, dx)
                 if precise:
                     ref32 = dict(y=y_ref, dx=dx_ref, dp=dp_ref)
                     continue
@@ -460,6 +484,33 @@ def gcn_train_phase() -> tuple[dict, dict]:
                     bwd['max_abs_err'] = max(
                         bwd['max_abs_err'], err_dx,
                         (dp - dp_ref).abs().max().item())
+        # K4 at N in {1, T - 1, T + 1}: the first graphs of the N = 8192
+        # input, their dx its first rows bit for bit (a graph's rows depend
+        # on its graph alone); their parameter gradients are printed (the
+        # N = 8192 call holds these graphs to the tolerances)
+        for k in sorted({1, plan['graphs'] - 1, plan['graphs'] + 1} - {0}):
+            for precise in (True, False):
+                tag = f'J={j} N={k} precise={precise}'
+                x, xs_ref, g, dx_main = main[precise]
+                args = (x[:k], xs_ref[:, :k], g[:k], params, a, heads)
+                dx, dp = gk.gcn_stack_bwd(*args, precise=precise)
+                dx2, dp2 = gk.gcn_stack_bwd(*args, precise=precise)
+                dp_ref = gk.gcn_stack_bwd_plain(*args, precise=precise)[1]
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(dx).all()
+                             and torch.isfinite(dp).all()),
+                        f'gcn_stack_bwd {tag}: non-finite output')
+                require(bool(torch.equal(dx, dx2) and torch.equal(dp, dp2)),
+                        f'gcn_stack_bwd {tag}: two runs on the same input '
+                        f'differ')
+                require(bool(torch.equal(dx, dx_main[:k])),
+                        f'gcn_stack_bwd {tag}: dx differs from the first {k} '
+                        f'graphs of the N={n_main} call')
+                err, scale = rel_err(dp, dp_ref)
+                print(f'gcn_stack_bwd {tag}: bit-equal over two runs and dx '
+                      f'to the first {k} graphs of N={n_main}; parameter '
+                      f'gradients max_abs_err {err:.3e} (max|ref| '
+                      f'{scale:.3f}; printed)', flush=True)
         # the main path's mode: bf16 operands, N = B * T graphs
         x = torch.randn(n_main, j, f, generator=gen).cuda()
         g = torch.randn(n_main, j, f, generator=gen).cuda()
