@@ -178,6 +178,21 @@ __device__ __forceinline__ T bin_power(T2 a, T2 c, T2 w, int magnitude) {
   return magnitude ? Real<T>::sqrt(p) : p;
 }
 
+// -DA2M_MEL_PROFILE (utils/mel_probe.py): thread 0 of each block adds the
+// clock cycles from one barrier to the next to its phase's counter:
+// gather, the five two-stage passes (n_fft 2048), split, mel/log/store.
+#ifdef A2M_MEL_PROFILE
+__device__ unsigned long long g_prof[1024][8];
+#define PROF(ph)                                                    \
+  if (tid == 0 && blockIdx.x < 1024) {                              \
+    const long long now_ = clock64();                               \
+    g_prof[blockIdx.x][ph] += now_ - t_prev_;                       \
+    t_prev_ = now_;                                                 \
+  }
+#else
+#define PROF(ph)
+#endif
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, Real<T>::kBlocksPerSM)
 log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
@@ -201,6 +216,9 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
 
   for (int i = tid; i < m; i += kThreads) tw[i] = twiddle[i];
 
+#ifdef A2M_MEL_PROFILE
+  long long t_prev_ = clock64();
+#endif
   for (int g = blockIdx.x; g < groups; g += gridDim.x) {
     const int row0 = g * fb;
     // gather, window, pack even/odd samples as complex, bit-reversed
@@ -232,6 +250,7 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
       z[sw((f << log2m) + (__brev(p) >> (32 - log2m)))] = v;
     }
     __syncthreads();
+    PROF(0)
 
     // radix-2 decimation-in-time stages, half-size h = 2^s; stages s and
     // s + 1 run as one pass over 4 points (the same operations in the
@@ -270,6 +289,7 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
         z[sw(i0 + 3 * h)] = csub(b1, b3);
       }
       __syncthreads();
+      PROF(1 + s / 2)
     }
 
     // real-input split: X[k] = E[k] + W^k O[k], E = (Z[k] + conj Z[m-k]) / 2,
@@ -289,6 +309,7 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
                                  magnitude);
     }
     __syncthreads();
+    PROF(6)
 
     // mel projection over each mel's nonzero bins, in bin order; log
     for (int i = tid; i < fb * n_mels; i += kThreads) {
@@ -305,6 +326,7 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
       out[(size_t)row * n_mels + mel] =
           (float)take_log<T>(acc, log_offset, log_const);
     }
+    PROF(7)
     // the next group's split writes pw only after its gather and stages,
     // each followed by a barrier, so no barrier is needed here
   }
@@ -373,6 +395,17 @@ int a2m_log_mel_exact(const void* y, void* out, const void* window,
                         n_fft, n_mels, magnitude, log_offset, log_const,
                         stream);
 }
+
+#ifdef A2M_MEL_PROFILE
+// The phase counters (1024 blocks x 8 phases, cycles) into out; reset.
+int a2m_log_mel_profile(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+}
+int a2m_log_mel_profile_reset() {
+  static unsigned long long zero[1024][8];
+  return (int)cudaMemcpyToSymbol(g_prof, zero, sizeof(g_prof));
+}
+#endif
 
 const char* a2m_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
