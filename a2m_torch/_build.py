@@ -57,8 +57,11 @@ SIGNATURES = {
     'log_mel': {
         'a2m_log_mel': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _F, _P],
-        'a2m_log_mel_exact': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _D, _P],
+    },
+    'log_mel_exact': {
+        'a2m_log_mel_exact': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _D, _P],
+        'a2m_log_mel_exact_info': [_I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -13,13 +13,14 @@ log-mel kernel (:mod:`a2m_torch.audio.mel_kernel`) on CUDA, the wrappers
 
 As in a2m, ``exact=True`` is the default: within 1e-5 of the float64
 golden (``mel_np``), for feature extraction; the serving paths pass
-``exact=False``.  On CUDA the kernel runs a real FFT (a2m's fast path
-takes the same function by a two-stage radix DFT, ``frontend.py:138-237``)
-and reads the tables of :func:`fft_tables`: the window, the twiddles and
-the filterbank over its nonzeros, in f32 (K2, fast mode) or float64 (K2x,
-exact mode; a2m's hi/lo split matrices and precise log need no counterpart
-there).  On the CPU the plain version runs the direct windowed DFT on
-:func:`dft_matrices`, in f32 or float64.
+``exact=False``.  On CUDA a kernel runs a real FFT (a2m's fast path takes
+the same function by a two-stage radix DFT, ``frontend.py:138-237``) and
+reads the tables of :func:`fft_tables`: the window, the twiddles and the
+filterbank over its nonzeros, in f32 (K2, fast mode) or float64 (K2x,
+exact mode, with its own twiddle tables and mel schedule; a2m's hi/lo
+split matrices and precise log need no counterpart there).  On the CPU the
+plain version runs the direct windowed DFT on :func:`dft_matrices`, in f32
+or float64.
 """
 
 from __future__ import annotations
@@ -168,17 +169,27 @@ def twiddles(n_fft: int, dtype=np.float32) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def fft_tables(spec: MelSpec, exact: bool = False) -> dict:
-    """What the FFT kernel reads besides the waveform: the window as the
+    """What the FFT kernels read besides the waveform: the window as the
     frame of n_fft points sees it (centred inside n_fft for librosa frames;
     VGGish's frames of win_length are zero-padded to n_fft), the twiddles,
     and the filterbank of :func:`dft_matrices` over its nonzeros; f32, or
-    float64 when ``exact`` (never rounded through f32)."""
+    float64 when ``exact`` (never rounded through f32).  ``exact`` adds
+    K2x's own tables: ``fft_twiddle`` (``mel_kernel.exact_twiddles``) and
+    the mel schedule ``sched_weights``, ``sched_index``, ``mel_pieces``
+    (``mel_kernel.mel_schedule``)."""
     dtype = np.float64 if exact else np.float32
     m = dft_matrices(spec, exact)
     bins, weights = sparse_mel(m['mel'])
-    return dict(frame_len=m['frame_len'], window=_window(spec).astype(dtype),
-                twiddle=twiddles(spec.n_fft, dtype), mel_bins=bins,
-                mel_weights=weights)
+    out = dict(frame_len=m['frame_len'], window=_window(spec).astype(dtype),
+               twiddle=twiddles(spec.n_fft, dtype), mel_bins=bins,
+               mel_weights=weights)
+    if exact:
+        sched = mel_kernel.mel_schedule(
+            bins, weights, mel_kernel.exact_plan(spec.n_fft)['tpf'])
+        out.update(fft_twiddle=mel_kernel.exact_twiddles(spec.n_fft),
+                   sched_weights=sched[0], sched_index=sched[1],
+                   mel_pieces=sched[2])
+    return out
 
 
 @functools.lru_cache(maxsize=16)
@@ -193,14 +204,18 @@ def mel_tables(spec: MelSpec, device: torch.device | str,
     def put(a):
         return torch.from_numpy(a).to(device)
 
-    dense = {}
+    extra = {}
     if device.type == 'cpu':
         m = dft_matrices(spec, exact)
-        dense = {k: put(m[k]) for k in ('dr', 'di', 'mel')}
+        extra = {k: put(m[k]) for k in ('dr', 'di', 'mel')}
+    if exact:
+        extra.update({k: put(t[k]) for k in ('sched_weights', 'sched_index',
+                                              'mel_pieces')})
     return mel_kernel.MelTables(
         frame_len=t['frame_len'], window=put(t['window']),
-        twiddle=put(t['twiddle']), mel_bins=put(t['mel_bins']),
-        mel_weights=put(t['mel_weights']), **dense)
+        twiddle=put(t['fft_twiddle' if exact else 'twiddle']),
+        mel_bins=put(t['mel_bins']), mel_weights=put(t['mel_weights']),
+        **extra)
 
 
 def _pcm_to_float(y: torch.Tensor) -> torch.Tensor:

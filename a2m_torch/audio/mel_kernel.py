@@ -1,21 +1,24 @@
-"""Fused log-mel: CUDA kernel wrapper, its plain version, its cost model.
+"""Fused log-mel: CUDA kernel wrappers, their plain version, their cost
+model.
 
-The kernel (``a2m_torch/csrc/log_mel.cu``) replaces the Pallas TPU kernel
-``a2m/audio/pallas_mel.py::_kernel`` (called by ``pallas_log_mel``,
-``:68-232``): framing of the waveform (centred and reflect-padded, or
-unpadded), window, real FFT of ``n_fft`` points, power or magnitude, mel
-projection over the filterbank's nonzeros onto up to 128 mels, and
-``log(max(mel, c))`` or ``log(mel + c)``.  A stack of frames cut by the
-client goes through the same kernel as a signal with ``hop = frame_len``
-and no pad (:func:`log_mel_framed`).  It has two instantiations, picked by
-the tables' type: K2 (f32 tables, f32 arithmetic: a2m's fast mode) and K2x
-(float64 tables, double arithmetic: a2m's exact mode, ``:96-125``, within
-1e-5 of the float64 golden).
+Two kernels replace the Pallas TPU kernel ``a2m/audio/pallas_mel.py::
+_kernel`` (called by ``pallas_log_mel``, ``:68-232``): framing of the
+waveform (centred and reflect-padded, or unpadded), window, real FFT of
+``n_fft`` points, power or magnitude, mel projection over the filterbank's
+nonzeros onto up to 128 mels, and ``log(max(mel, c))`` or ``log(mel +
+c)``.  The tables' type picks one: K2 (``a2m_torch/csrc/log_mel.cu``; f32
+tables, f32 arithmetic: a2m's fast mode) or K2x
+(``a2m_torch/csrc/log_mel_exact.cu``; float64 tables and arithmetic:
+a2m's exact mode, ``:96-125``, within 1e-5 of the float64 golden).  A
+stack of frames cut by the client goes through the same kernels as a
+signal with ``hop = frame_len`` and no pad (:func:`log_mel_framed`).
 
-:func:`log_mel` launches the kernel for CUDA tensors and runs
+:func:`log_mel` launches a kernel for CUDA tensors and runs
 :func:`log_mel_plain`, the direct windowed DFT in the tables' type, for
 CPU tensors, and for nothing else.  What either reads besides the waveform
-is a :class:`MelTables` (built by ``frontend.mel_tables``).
+is a :class:`MelTables` (built by ``frontend.mel_tables``); K2x's FFT plan,
+twiddle tables and mel schedule are :func:`exact_plan`,
+:func:`exact_twiddles` and :func:`mel_schedule`.
 """
 
 from __future__ import annotations
@@ -23,31 +26,41 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 MAX_MELS = 128    # the kernel's mel width
 MAX_FFT = 2048    # the kernel's largest FFT (1024 complex points a block)
+#: K2x: threads of one group, which transforms 64 / tpf frames at a time
+#: (tpf threads a frame, see :func:`exact_plan`)
+EXACT_GROUP = 64
 
 
 @dataclass(frozen=True, eq=False)
 class MelTables:
     """The log-mel's constants on one device, all float32 (fast mode, K2)
-    or all float64 (exact mode, K2x) but ``mel_bins``.
+    or all float64 (exact mode, K2x) but the int32 index tables.
 
     The kernel's: ``window`` (n_fft,), the window as the frame of ``n_fft``
-    points sees it (zero outside it); ``twiddle`` (n_fft/2, 2), ``exp(-2 pi
-    i k / n_fft)`` as (re, im), built in float64; ``mel_bins`` (n_mels, 3)
-    int32, each mel's first nonzero bin, bin count and offset into
-    ``mel_weights`` (nnz,), the dense filterbank's entries.  The plain
-    version's: ``dr``, ``di`` (frame_len, K) window-folded DFT matrices and
-    ``mel`` (K, n_mels); None on a CUDA device, where only the kernel reads
-    the tables."""
+    points sees it (zero outside it); ``twiddle`` (n, 2) as (re, im), built
+    in float64: K2's ``exp(-2 pi i k / n_fft)`` for k < n_fft/2, K2x's
+    per-pass and split tables of :func:`exact_twiddles`; ``mel_bins``
+    (n_mels, 3) int32, each mel's first nonzero bin, bin count and offset
+    into ``mel_weights`` (nnz,), the dense filterbank's entries.  K2x's mel
+    runs by the schedule of :func:`mel_schedule`: ``sched_weights`` (Q,
+    tpf) float64, ``sched_index`` (Q, tpf) int32, ``mel_pieces`` (n_mels +
+    1,) int32 (None in fast mode).  The plain version's: ``dr``, ``di``
+    (frame_len, K) window-folded DFT matrices and ``mel`` (K, n_mels); None
+    on a CUDA device, where only the kernel reads the tables."""
     frame_len: int
     window: torch.Tensor
     twiddle: torch.Tensor
     mel_bins: torch.Tensor
     mel_weights: torch.Tensor
+    sched_weights: torch.Tensor | None = None
+    sched_index: torch.Tensor | None = None
+    mel_pieces: torch.Tensor | None = None
     dr: torch.Tensor | None = None
     di: torch.Tensor | None = None
     mel: torch.Tensor | None = None
@@ -66,8 +79,96 @@ class MelTables:
 
     def tensors(self) -> tuple:
         return tuple(t for t in (self.window, self.twiddle, self.mel_bins,
-                                 self.mel_weights, self.dr, self.di, self.mel)
+                                 self.mel_weights, self.sched_weights,
+                                 self.sched_index, self.mel_pieces, self.dr,
+                                 self.di, self.mel)
                      if t is not None)
+
+
+def exact_plan(n_fft: int) -> dict:
+    """K2x's FFT of the ``m = n_fft / 2`` complex points of a frame: a
+    Stockham FFT of radix-16 passes and a last pass of radix 2, 4 or 8
+    (``radices``), each thread holding ``points`` (16, or m when m < 16) in
+    registers, ``tpf = m / points`` threads a frame, ``lanes = 64 / tpf``
+    frames a group of :data:`EXACT_GROUP` threads.  At n_fft 2048: 16 x 16
+    x 4, 64 threads a frame; at 512: 16 x 4 x 4, 16 threads a frame, 4
+    frames a group.  The last pass's radix is 2, 4 or 8 whenever a frame
+    spans threads, so that each thread ends holding both bins k and m - k
+    of the real-input split (see ``log_mel_exact.cu``)."""
+    m = n_fft // 2
+    log2m = m.bit_length() - 1
+    if log2m <= 4:
+        radices = (m,)
+    elif log2m % 4 == 0:
+        radices = (16,) * (log2m // 4 - 1) + (4, 4)
+    else:
+        radices = (16,) * (log2m // 4) + (1 << log2m % 4,)
+    points = min(16, m)
+    tpf = m // points
+    spans = [math.prod(radices[:q]) for q in range(len(radices))]
+    twiddles = (sum((r - 1) * p for r, p in zip(radices[1:], spans[1:]))
+                + m // radices[-1])
+    return dict(m=m, radices=radices, points=points, tpf=tpf,
+                lanes=EXACT_GROUP // tpf, twiddles=twiddles)
+
+
+def exact_twiddles(n_fft: int) -> np.ndarray:
+    """K2x's twiddle tables, (n, 2) float64 (re, im), concatenated in pass
+    order.  Pass q > 0 of radix R after passes whose radices multiply to p
+    reads ``exp(-2 pi i j k / (p R))`` at ``(j - 1) p + k`` (j in [1, R), k
+    in [0, p)): a thread's k are consecutive with its index, so a warp
+    reads consecutive entries.  Then the split's ``exp(-pi i k / m)`` for k
+    in [0, m / R_last); bin k = k0 + (m / R_last) j of the split takes it
+    at k0 times the constant ``exp(-pi i j / R_last)``."""
+    plan = exact_plan(n_fft)
+    m, radices = plan['m'], plan['radices']
+    parts, p = [], radices[0]
+    for r in radices[1:]:
+        j, k = np.meshgrid(np.arange(1, r), np.arange(p), indexing='ij')
+        parts.append((-2.0 * np.pi * (j * k) / (p * r)).ravel())
+        p *= r
+    parts.append(-np.pi * np.arange(m // radices[-1]) / m)
+    ang = np.concatenate(parts)
+    return np.stack([np.cos(ang), np.sin(ang)], -1)
+
+
+def mel_schedule(mel_bins: np.ndarray, mel_weights: np.ndarray,
+                 threads: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """K2x's mel over the filterbank's nonzeros, balanced over a frame's
+    ``threads``: the nonzeros in mel order are cut into ``threads`` runs of
+    Q = ceil(nnz / threads) (the last ones shorter); thread t sums run t in
+    order and stores a partial sum wherever a mel ends inside the run or
+    the run ends (a piece); mel j is then the sum, in order, of its pieces
+    ``pieces[j]:pieces[j + 1]``.  Returns ``weights`` (rows, threads)
+    float64, ``index`` (rows, threads) int32 and ``pieces`` (n_mels + 1,)
+    int32, rows being Q rounded up to a multiple of 8 (the kernel loads 8
+    steps at a time; the padding has weight 0).  ``index`` holds the bin's
+    slot among the kernel's bins, k + k // 16 (a pad every 16 bins: runs
+    start ~16 bins apart, and the pad sends them to distinct banks), plus
+    (piece + 1) << 16 where a piece ends.  Read step by step, consecutive
+    threads read consecutive entries.  A fixed schedule: every frame's sums
+    run in the same order."""
+    first, count, offset = (mel_bins[:, c].astype(np.int64)
+                            for c in range(3))
+    nnz = int(count.sum())
+    q = max(1, -(-nnz // threads))
+    mel_of = np.repeat(np.arange(len(count)), count)
+    bin_of = first[mel_of] + np.arange(nnz) - offset[mel_of]
+    weights = np.zeros((-(-q // 8) * 8, threads))
+    index = np.zeros(weights.shape, np.int64)
+    piece_mel = []                    # pieces in nonzero order: mel order
+    for t in range(threads):
+        end = min((t + 1) * q, nnz)
+        for n in range(t * q, end):
+            weights[n - t * q, t] = mel_weights[n]
+            index[n - t * q, t] = bin_of[n] + (bin_of[n] >> 4)
+            if n + 1 == end or mel_of[n + 1] != mel_of[n]:
+                piece_mel.append(mel_of[n])
+                index[n - t * q, t] += len(piece_mel) << 16
+    per_mel = np.bincount(np.asarray(piece_mel, np.int64),
+                          minlength=len(count))
+    pieces = np.concatenate([[0], np.cumsum(per_mel)]).astype(np.int32)
+    return weights, index.astype(np.int32), pieces
 
 
 def reflect_index(s: torch.Tensor, n: int) -> torch.Tensor:
@@ -119,9 +220,8 @@ def log_mel_plain(y: torch.Tensor, dr: torch.Tensor, di: torch.Tensor,
 def check_kernel_shapes(n_fft: int, frame_len: int, n_mels: int) -> None:
     """Raise ``ValueError`` for what the kernel does not take: an ``n_fft``
     that is not a power of two from 4 to :data:`MAX_FFT`, frames longer
-    than ``n_fft``, more than :data:`MAX_MELS` mels.  Both instantiations
-    take the same shapes: K2x's float64 points, twiddles and bins take 44 KB
-    of shared memory at n_fft 2048, inside the 48 KB of a static block."""
+    than ``n_fft``, more than :data:`MAX_MELS` mels.  K2 and K2x take the
+    same shapes."""
     if not 4 <= n_fft <= MAX_FFT or n_fft & (n_fft - 1):
         raise ValueError(f'log_mel: n_fft {n_fft} is not a power of two '
                          f'from 4 to {MAX_FFT}')
@@ -168,38 +268,69 @@ def log_mel(y: torch.Tensor, tables: MelTables, hop: int, pad: int,
         raise ValueError(f'log_mel: no kernel for device {y.device}')
     n_fft, n_mels = tables.n_fft, tables.n_mels
     check_kernel_shapes(n_fft, tables.frame_len, n_mels)
-    dtype = torch.float64 if exact else torch.float32
-    if (tables.twiddle.shape != (n_fft // 2, 2)
-            or tables.mel_bins.shape != (n_mels, 3)
-            or tables.mel_bins.dtype != torch.int32
-            or any(t.dtype != dtype for t in (
-                tables.window, tables.twiddle, tables.mel_weights))
-            or not all(t.is_contiguous() for t in tables.tensors())):
-        raise ValueError('log_mel: tables of the wrong shape, type or '
-                         'layout for the kernel')
     from a2m_torch import _build
     y = y.contiguous()
     batch = y.shape[0]
     out = torch.empty(batch, n_frames, n_mels, device=y.device)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    if exact:
+        check_exact_tables(tables)
+        lib = _build.load('log_mel_exact')
+        code = lib.a2m_log_mel_exact(
+            y.data_ptr(), out.data_ptr(), tables.window.data_ptr(),
+            tables.twiddle.data_ptr(), tables.sched_weights.data_ptr(),
+            tables.sched_index.data_ptr(), tables.mel_pieces.data_ptr(),
+            batch, y.shape[1], tables.frame_len, hop, pad, n_frames, n_fft,
+            n_mels, tables.sched_weights.shape[0], int(power == 1.0),
+            int(log_mode == 'offset'), log_const, stream)
+        _build.check(lib, code, 'log_mel_exact')
+        log_mel.exact_launches += 1
+        return out
+    if (tables.twiddle.shape != (n_fft // 2, 2)
+            or tables.mel_bins.shape != (n_mels, 3)
+            or tables.mel_bins.dtype != torch.int32
+            or any(t.dtype != torch.float32 for t in (
+                tables.window, tables.twiddle, tables.mel_weights))
+            or not all(t.is_contiguous() for t in tables.tensors())):
+        raise ValueError('log_mel: tables of the wrong shape, type or '
+                         'layout for the kernel')
     lib = _build.load('log_mel')
-    entry = lib.a2m_log_mel_exact if exact else lib.a2m_log_mel
-    code = entry(
+    code = lib.a2m_log_mel(
         y.data_ptr(), out.data_ptr(), tables.window.data_ptr(),
         tables.twiddle.data_ptr(), tables.mel_bins.data_ptr(),
         tables.mel_weights.data_ptr(), batch, y.shape[1], tables.frame_len,
         hop, pad, n_frames, n_fft, n_mels, int(power == 1.0),
-        int(log_mode == 'offset'), log_const,
-        torch.cuda.current_stream(y.device).cuda_stream)
-    _build.check(lib, code, 'log_mel_exact' if exact else 'log_mel')
-    if exact:
-        log_mel.exact_launches += 1
-    else:
-        log_mel.launches += 1
+        int(log_mode == 'offset'), log_const, stream)
+    _build.check(lib, code, 'log_mel')
+    log_mel.launches += 1
     return out
 
 
+def check_exact_tables(tables: MelTables) -> None:
+    """Raise ``ValueError`` unless ``tables`` are what K2x reads: float64
+    window and twiddles of :func:`exact_twiddles`, a float64 / int32
+    schedule of :func:`mel_schedule` for the plan's threads a frame, int32
+    pieces, all contiguous."""
+    plan = exact_plan(tables.n_fft)
+    sched = (tables.sched_weights, tables.sched_index, tables.mel_pieces)
+    if (any(t is None for t in sched)
+            or tables.twiddle.shape != (plan['twiddles'], 2)
+            or tables.sched_weights.ndim != 2
+            or tables.sched_weights.shape[1] != plan['tpf']
+            or tables.sched_index.shape != tables.sched_weights.shape
+            or tables.mel_pieces.shape != (tables.n_mels + 1,)
+            or any(t.dtype != torch.float64 for t in (
+                tables.window, tables.twiddle, tables.sched_weights))
+            or any(t.dtype != torch.int32 for t in (
+                tables.sched_index, tables.mel_pieces))
+            or not all(t.is_contiguous() for t in tables.tensors())):
+        raise ValueError('log_mel: tables of the wrong shape, type or '
+                         'layout for the exact kernel')
+
+
 #: kernel launches since the count was last set to 0 (one launch is one
-#: device kernel, ``log_mel_fft_kernel``): K2 (fast mode) and K2x (exact)
+#: device kernel): K2 (fast mode, ``log_mel_fft_kernel``) and K2x (exact,
+#: ``log_mel_exact_kernel``)
 log_mel.launches = 0
 log_mel.exact_launches = 0
 
@@ -225,8 +356,10 @@ def log_mel_flops(batch: int, n_frames: int, n_fft: int, nnz: int,
     algorithm: window, a real FFT of ``n_fft`` points (2.5 n log2 n, half
     of a complex radix-2 FFT's 5 n log2 n), power of the n_fft/2 + 1 bins,
     mel projection over the filterbank's ``nnz`` nonzeros, log.  The same
-    count for both modes: K2 does them in f32 (67 TFLOP/s on the H100),
-    K2x in float64 (34 TFLOP/s)."""
+    count for both modes.  On the H100 K2 does them in f32 (67 TFLOP/s)
+    and K2x in float64: its bound takes the 67 TFLOP/s of the fp64 tensor
+    cores, the card's peak fp64 rate; an FFT runs on the fp64 pipes outside
+    them, at 34 TFLOP/s (twice the bound's time, K2x's floor)."""
     fft = round(2.5 * n_fft * math.log2(n_fft))
     k = n_fft // 2 + 1
     return batch * n_frames * (n_fft + fft + 3 * k + 2 * nnz + n_mels)

@@ -1,11 +1,11 @@
-// Fused log-mel frontend by FFT, CUDA C++ for sm_90a, in two instantiations
-// of one kernel template: K2 computes in float, K2x in double.
+// K2: the fused log-mel frontend of serving by FFT, CUDA C++ for sm_90a, in
+// float (the kernel template's one instantiation).
 //
 // Replaces the Pallas TPU kernel a2m/audio/pallas_mel.py::_kernel (called by
-// pallas_log_mel) in both of its modes: framing of the waveform (centred and
-// reflect-padded, or as it is) -> window -> real DFT of n_fft points ->
-// power re^2 + im^2, or its square root (magnitude) -> mel projection ->
-// log(max(mel, c)) or log(mel + c).  The Pallas kernel runs the DFT as two
+// pallas_log_mel) in its fast mode (exact=False): framing of the waveform
+// (centred and reflect-padded, or as it is) -> window -> real DFT of n_fft
+// points -> power re^2 + im^2, or its square root (magnitude) -> mel
+// projection -> log(max(mel, c)) or log(mel + c).  The Pallas kernel runs the DFT as two
 // dense products because the TPU has no FFT; here it is a radix-2 FFT in
 // shared memory.  It covers the three frontend families: log_mel_512
 // (n_fft 2048, 1025 bins, 128 mels, power, eps log), log_mel_400 (frames of
@@ -52,29 +52,14 @@
 // More stages a pass (8 points a thread), spreading a long mel over two
 // threads, and the FFT's work across the card at B = 1 are later work.
 //
-// K2x, exact mode (a2m's exact=True, pallas_mel.py:96-125: hi/lo split f32
-// matrices at HIGHEST precision, precise_sqrt, precise_log, within 1e-5 of
-// the float64 golden) is the same kernel in double: samples are read as f32
-// and widened, the window, twiddles and mel weights are float64 tables
-// (never rounded through f32), and the packing, stages, split, power or
-// magnitude, mel and log run in double; only the output is rounded to f32.
-// No fast math: CUDA's double log and sqrt are within an ulp or two, so
-// a2m's precise_log/precise_sqrt have no counterpart.  The f32 FFT is
-// 2.2e-5 from float64 on a low-power mel, over the 1e-5 bound, and exact
-// mode serves offline feature extraction, where the fp64 rate costs little.
-// Bound on the H100 at 32 intervals of 60 s at 45.6 kHz (171,008 frames of
-// 2048): ~11.2 GFLOP by a real FFT, 0.33 ms at the 34 TFLOP/s fp64 rate,
-// against ~438 MB of samples and output (0.13 ms): bound by operations.
-// Shared memory is 44 KB a block (1024 double2 points, 1024 double2
-// twiddles, 1536 double bins), so 4 blocks an SM (64 registers a thread).
-// The swizzle is kept from K2: a permutation, right for any element size.
+// K2x, the exact mode (exact=True), is a kernel of its own designed for
+// float64: log_mel_exact.cu.
 //
 // Layout: y (B, n_samples) f32; window (n_fft,) T, the window as the frame
 // of n_fft points sees it (zero outside it); twiddle (n_fft/2,) T complex
 // pairs; mel_bins (n_mels, 3) int32: first bin, bin count, offset into
-// mel_weights (nnz,) T; out (B, n_frames, n_mels) f32; T is float for K2,
-// double for K2x.  n_fft is a power of two from 4 to 2048, frame_len <=
-// n_fft, n_mels <= 128.  Frame t starts at t * hop in the signal padded by
+// mel_weights (nnz,) T; out (B, n_frames, n_mels) f32; T is float.  n_fft
+// is a power of two from 4 to 2048, frame_len <= n_fft, n_mels <= 128.  Frame t starts at t * hop in the signal padded by
 // `pad` samples of reflection on each side (pad may be 0 or longer than the
 // signal, hop smaller or larger than frame_len).  The reflection is numpy's
 // mode='reflect': once the pad outgrows the signal it reflects again, with
@@ -82,6 +67,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "log_mel_common.cuh"
 
 namespace {
 
@@ -102,32 +89,12 @@ template <> struct Real<float> {
   }
   __device__ static float max(float a, float b) { return ::fmaxf(a, b); }
 };
-template <> struct Real<double> {
-  using T2 = double2;
-  static constexpr int kBlocksPerSM = 4;   // 64 registers; 44 KB of smem
-  __device__ static double log(double x) { return ::log(x); }
-  __device__ static double sqrt(double x) { return ::sqrt(x); }
-  __device__ static double fma(double a, double b, double c) {
-    return ::fma(a, b, c);
-  }
-  __device__ static double max(double a, double b) { return ::fmax(a, b); }
-};
 
 // log(mel + c) for the offset log, log(max(mel, c)) for the eps log
 template <typename T>
 __device__ __forceinline__ T take_log(T mel, int log_offset, T log_const) {
   return Real<T>::log(log_offset ? mel + log_const
                                  : Real<T>::max(mel, log_const));
-}
-
-// index in the signal of index s in its endless reflection (numpy's
-// mode='reflect'): reflect at either end until it lies inside.  Only the
-// frames at the ends of a signal shorter than the pad loop more than once;
-// a loop keeps K2 within its 32 registers, where a modulo spilled.
-__device__ __forceinline__ long reflect(long s, int n_samples) {
-  if (n_samples == 1) return 0;
-  while (s < 0 || s >= n_samples) s = s < 0 ? -s : 2L * (n_samples - 1) - s;
-  return s;
 }
 
 // windowed sample n of the frame starting at s0 in the padded signal
@@ -178,21 +145,6 @@ __device__ __forceinline__ T bin_power(T2 a, T2 c, T2 w, int magnitude) {
   return magnitude ? Real<T>::sqrt(p) : p;
 }
 
-// -DA2M_MEL_PROFILE (utils/mel_probe.py): thread 0 of each block adds the
-// clock cycles from one barrier to the next to its phase's counter:
-// gather, the five two-stage passes (n_fft 2048), split, mel/log/store.
-#ifdef A2M_MEL_PROFILE
-__device__ unsigned long long g_prof[1024][8];
-#define PROF(ph)                                                    \
-  if (tid == 0 && blockIdx.x < 1024) {                              \
-    const long long now_ = clock64();                               \
-    g_prof[blockIdx.x][ph] += now_ - t_prev_;                       \
-    t_prev_ = now_;                                                 \
-  }
-#else
-#define PROF(ph)
-#endif
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, Real<T>::kBlocksPerSM)
 log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
@@ -216,9 +168,6 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
 
   for (int i = tid; i < m; i += kThreads) tw[i] = twiddle[i];
 
-#ifdef A2M_MEL_PROFILE
-  long long t_prev_ = clock64();
-#endif
   for (int g = blockIdx.x; g < groups; g += gridDim.x) {
     const int row0 = g * fb;
     // gather, window, pack even/odd samples as complex, bit-reversed
@@ -250,7 +199,6 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
       z[sw((f << log2m) + (__brev(p) >> (32 - log2m)))] = v;
     }
     __syncthreads();
-    PROF(0)
 
     // radix-2 decimation-in-time stages, half-size h = 2^s; stages s and
     // s + 1 run as one pass over 4 points (the same operations in the
@@ -289,7 +237,6 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
         z[sw(i0 + 3 * h)] = csub(b1, b3);
       }
       __syncthreads();
-      PROF(1 + s / 2)
     }
 
     // real-input split: X[k] = E[k] + W^k O[k], E = (Z[k] + conj Z[m-k]) / 2,
@@ -309,7 +256,6 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
                                  magnitude);
     }
     __syncthreads();
-    PROF(6)
 
     // mel projection over each mel's nonzero bins, in bin order; log
     for (int i = tid; i < fb * n_mels; i += kThreads) {
@@ -326,7 +272,6 @@ log_mel_fft_kernel(const float* __restrict__ y, float* __restrict__ out,
       out[(size_t)row * n_mels + mel] =
           (float)take_log<T>(acc, log_offset, log_const);
     }
-    PROF(7)
     // the next group's split writes pw only after its gather and stages,
     // each followed by a barrier, so no barrier is needed here
   }
@@ -382,30 +327,6 @@ int a2m_log_mel(const void* y, void* out, const void* window,
                        n_samples, frame_len, hop, pad, n_frames, n_fft,
                        n_mels, magnitude, log_offset, log_const, stream);
 }
-
-// K2x: float64 tables, double arithmetic, f32 samples in and f32 out
-int a2m_log_mel_exact(const void* y, void* out, const void* window,
-                      const void* twiddle, const void* mel_bins,
-                      const void* mel_weights, int batch, int n_samples,
-                      int frame_len, int hop, int pad, int n_frames,
-                      int n_fft, int n_mels, int magnitude, int log_offset,
-                      double log_const, void* stream) {
-  return launch<double>(y, out, window, twiddle, mel_bins, mel_weights,
-                        batch, n_samples, frame_len, hop, pad, n_frames,
-                        n_fft, n_mels, magnitude, log_offset, log_const,
-                        stream);
-}
-
-#ifdef A2M_MEL_PROFILE
-// The phase counters (1024 blocks x 8 phases, cycles) into out; reset.
-int a2m_log_mel_profile(void* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-}
-int a2m_log_mel_profile_reset() {
-  static unsigned long long zero[1024][8];
-  return (int)cudaMemcpyToSymbol(g_prof, zero, sizeof(g_prof));
-}
-#endif
 
 const char* a2m_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -1,4 +1,5 @@
-"""Where K2x, the exact-mode log-mel kernel, spends its cycles.
+"""Where K2x, the exact-mode log-mel kernel (``csrc/log_mel_exact.cu``),
+spends its cycles.
 
 Run on the card, from the repository root::
 
@@ -13,7 +14,9 @@ between consecutive points of its frame loop to a counter per phase (see
 (CUDA events, 10 calls after 2) as built and as profiled, the compiler's
 registers, spills and shared memory of both builds, and the cycles of each
 phase per block (mean over the first 132 blocks) and per frame of the
-profiled thread.  The last line is one JSON object.
+profiled thread, and the launch plan (frames and threads a block, shared
+bytes, blocks an SM, registers and spills).  The last line is one JSON
+object.
 """
 
 from __future__ import annotations
@@ -27,21 +30,30 @@ import numpy as np
 import torch
 
 from a2m_torch import _build
-from a2m_torch.audio import frontend, mel_kernel
+from a2m_torch.audio import frontend
 from a2m_torch.utils.conv1d_probe import cuda_ms
 
-SOURCE = 'log_mel'
-ENTRY = 'a2m_log_mel'
-#: barrier-to-barrier phases of a frame (a group of frames) in the loop
-PHASES = ('gather', 'pass1', 'pass2', 'pass3', 'pass4', 'pass5', 'split',
-          'mel_log_store')
+SOURCE = 'log_mel_exact'
+ENTRY = 'a2m_log_mel_exact'
+#: phases of a frame in the loop: the copy's wait and the group barrier,
+#: the next frame's copy issued and this one's gather, pass 1 and the first
+#: exchange, pass 2 and the second, pass 3, the split, the mel's partial
+#: sums, the mels' sums, log and store
+PHASES = ('wait', 'gather', 'pass1', 'pass2', 'pass3', 'split', 'mel',
+          'log_store')
 SR, SECONDS, BATCH = 45600, 60, 32
 
 
-def workers(n_sms: int) -> int:
-    """Frames in flight on the card: one a block at n_fft 2048, 4 blocks
-    an SM (PR 6's design)."""
-    return 4 * n_sms
+def plan(lib, spec) -> dict:
+    """K2x's launch plan at ``spec`` (``a2m_log_mel_exact_info``)."""
+    t = frontend.fft_tables(spec, exact=True)
+    out = np.zeros(8, np.int32)
+    _build.check(lib, lib.a2m_log_mel_exact_info(
+        spec.n_fft, spec.n_mels, t['sched_weights'].shape[0],
+        t['frame_len'], spec.hop_length, out.ctypes.data), 'mel_probe')
+    return dict(zip(('frames_a_block', 'threads', 'smem_bytes',
+                     'blocks_per_sm', 'registers', 'spill_bytes', 'sms',
+                     'threads_a_frame'), map(int, out)))
 
 
 def build_variants() -> tuple[dict, dict]:
@@ -111,9 +123,12 @@ def main() -> None:
             _build._loaded[SOURCE] = port
     counters = np.zeros((1024, 8), np.uint64)
     _build.check(prof, read_profile(counters.ctypes.data), 'mel_probe')
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    info = plan(libs['port'], spec)
+    sms = info['sms']
     cycles = counters[:sms].astype(np.float64).mean(0)
-    frames = BATCH * n_frames / workers(sms)
+    # the profiled thread is lane 0 of its block's first group
+    frames = BATCH * n_frames / (info['frames_a_block'] * sms)
+    row['plan'] = info
     row['frames_per_profiled_thread'] = frames
     row['cycles_per_block'] = {p: float(c) for p, c in zip(PHASES, cycles)}
     row['cycles_per_frame'] = {p: float(c) / frames
@@ -123,8 +138,8 @@ def main() -> None:
                                   if isinstance(v, float))
           + '; cycles per frame: ' + ' '.join(
               f'{p}={c:.0f}' for p, c in row['cycles_per_frame'].items())
-          + f' (total {sum(row["cycles_per_frame"].values()):.0f})',
-          flush=True)
+          + f' (total {sum(row["cycles_per_frame"].values()):.0f}); plan '
+          + ' '.join(f'{k}={v}' for k, v in info.items()), flush=True)
     print(json.dumps({'mel_probe': row, 'source': SOURCE,
                       'compiler': logs, 'device': smi}))
 

@@ -38,6 +38,7 @@ CATEGORIES = (
     ('gcn_stack_edge', ('gcn_stack_edge_kernel',
                         'gcn_stack_edge_tc_kernel')),
     ('gcn_stack', ('gcn_stack_kernel', 'gcn_stack_tc_kernel')),
+    ('log_mel_exact', ('log_mel_exact_kernel',)),
     ('log_mel', ('log_mel_fft_kernel',)),
     ('convolution', ('conv', 'cudnn', 'implicit_gemm', 'fprop', 'dgrad',
                      'wgrad', 'winograd', 'fft')),

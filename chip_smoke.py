@@ -79,13 +79,17 @@ each fatal on failure:
    ``a2m_torch/testdata/streaming_golden.npz``; wall per call and realtime
    factor for 8 streams and for one, with the upload and with the input
    already on the card;
-10. the data path: K2x (the exact-mode log-mel, ``log_mel.cu`` in double)
-   against its plain version evaluated in float64 (1e-5) on one and 32
-   intervals of 60 s at 45.6 kHz (``log_mel_512``), 60 s at 16 kHz
-   (``log_mel_400``) and waveforms of 1, 2, 500 and 1,024 samples (K2 on
-   these too, at 1e-4), each with a bit-equal rerun, the distance to the
-   port's float64 ``mel_np`` golden printed beside it, and K2x timed at 32
-   intervals beside its bound (fp64 operations against bytes) and the
+10. the data path: K2x (the exact-mode log-mel, ``log_mel_exact.cu``): its
+   launch plan (frames and threads a block, shared bytes, blocks an SM,
+   registers, spills), then against its plain version evaluated in float64
+   (1e-5) on one and 32 intervals of 60 s at 45.6 kHz (``log_mel_512``),
+   row 0 of the one bit-equal to row 0 of the 32, 60 s at 16 kHz
+   (``log_mel_400``, and VGGish with its framed entry bit-equal to the
+   waveform's) and waveforms of 1, 2, 500 and 1,024 samples (K2 on these
+   too, at 1e-4), each with a bit-equal rerun, the distance to the port's
+   float64 ``mel_np`` golden printed beside it, and K2x timed at 32
+   intervals beside its bound (fp64 operations at the tensor cores' rate
+   against bytes), the floor of the fp64 pipes an FFT runs on and the
    float64 ``torch.stft`` route; then 16 seeded intervals of 60 s written as
    wav files and read back through ``audio.io.wav_to_features`` (log-mel 512
    on all, log-mel 400 with the kaiser_best resample on two), driven with
@@ -115,6 +119,7 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 PEAK_BF16 = 989e12                # dense tensor-core bf16 FLOP/s
 PEAK_FP32 = 67e12                 # fp32 outside the tensor cores
 PEAK_FP64 = 67e12                 # fp64 on the tensor cores (DMMA)
+FP64_PIPES = 34e12                # fp64 outside them, where an FFT runs
 # bf16-operand K1: mean |kernel - plain bf16| as a share of the mean
 # bf16-vs-f32 gap of the plain version
 BF16_MEAN_SHARE = 0.01
@@ -1319,14 +1324,37 @@ def time_mel_exact(tag: str, y, spec) -> dict:
                                       tables.frame_len, spec.hop_length,
                                       n_fft, nnz, spec.n_mels, table_bytes=8)
     b_ms, b_by = bound(flops, nbytes, PEAK_FP64)
+    floor_ms = flops / FP64_PIPES * 1e3
     print(f'{tag}: K2x kernel_ms={ms:.4f} plain_ms={plain:.4f} '
           f'library_ms={lib_ms:.4f} (float64 torch.stft route, max_abs_err '
           f'vs K2x {lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}; '
           f'{flops / 1e9:.3f} GFLOP by real FFT and the mel over its {nnz} '
           f'nonzeros at fp64 {PEAK_FP64 / 1e12:g} TFLOP/s, '
-          f'{nbytes / 1e6:.1f} MB)', flush=True)
+          f'{nbytes / 1e6:.1f} MB); at the {FP64_PIPES / 1e12:g} TFLOP/s of '
+          f'the fp64 pipes an FFT runs on: {floor_ms:.4f} ms; '
+          f'{ms / b_ms:.1f}x the bound', flush=True)
     return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, batch=batch, n_frames=t)
+                bound_by=b_by, fp64_pipes_floor_ms=floor_ms, batch=batch,
+                n_frames=t)
+
+
+def k2x_plan(spec) -> dict:
+    """K2x's launch plan at ``spec``, from the kernel's own entry."""
+    import numpy as np
+    from a2m_torch import _build
+    from a2m_torch.audio import frontend
+    lib = _build.load('log_mel_exact')
+    t = frontend.fft_tables(spec, exact=True)
+    out = np.zeros(8, np.int32)
+    _build.check(lib, lib.a2m_log_mel_exact_info(
+        spec.n_fft, spec.n_mels, t['sched_weights'].shape[0],
+        t['frame_len'], spec.hop_length, out.ctypes.data), 'log_mel_exact_info')
+    plan = dict(zip(('frames_a_block', 'threads', 'smem_bytes',
+                     'blocks_per_sm', 'registers', 'spill_bytes', 'sms',
+                     'threads_a_frame'), map(int, out)))
+    require(plan['blocks_per_sm'] >= 1 and plan['frames_a_block'] >= 1,
+            f'K2x plan {plan}')
+    return plan
 
 
 def exact_kernel_cases() -> dict:
@@ -1342,16 +1370,24 @@ def exact_kernel_cases() -> dict:
         frontend.spec_log_mel_400()
     golden512 = lambda y0: mel_np.log_mel_512(y0, SR)  # noqa: E731
     golden400 = lambda y0: mel_np.log_mel_400(y0, 16000)  # noqa: E731
+    plans = {name: k2x_plan(spec) for name, spec in (
+        ('log_mel_512', spec512), ('log_mel_400', spec400))}
+    for name, plan in plans.items():
+        print(f'K2x plan at {name}: ' + ' '.join(
+            f'{k}={v}' for k, v in plan.items()), flush=True)
     errs = []
     y = (torch.randn(32, SR * DATA_SECONDS, generator=gen) * 0.1).cuda()
     tag = f'log_mel_512 B=1 {DATA_SECONDS} s'
-    got = frontend.log_mel(y[:1], spec512, True)
-    errs.append(check_exact(tag, y[:1], spec512, got, golden512))
+    one = frontend.log_mel(y[:1], spec512, True)
+    errs.append(check_exact(tag, y[:1], spec512, one, golden512))
     tag = f'log_mel_512 B=32 {DATA_SECONDS} s'
     got = frontend.log_mel(y, spec512, True)
     errs.append(check_exact(tag, y, spec512, got, golden512))
+    same = torch.equal(one[0], got[0])
+    print(f'{tag}: row 0 bit-equal to the B=1 call: {same}', flush=True)
+    require(same, 'K2x: row 0 of B=32 differs from B=1')
     timed = time_mel_exact(tag, y, spec512)
-    del y, got
+    del y, got, one
     # a2m's tonal clip (tests/test_audio_frontend.py:129-140) at four
     # pitches: most of its mels lie far below the peak, where an f32 FFT
     # misses 1e-5, so K2's distance on the same input shows that the gate
@@ -1375,6 +1411,20 @@ def exact_kernel_cases() -> dict:
     got = frontend.log_mel(y16, spec400, True)
     errs.append(check_exact(f'log_mel_400 B=1 {DATA_SECONDS} s', y16,
                             spec400, got, golden400))
+    # VGGish: frames of 400 in 512, htk mels, offset log; its framed entry
+    # gives the waveform's bits
+    vggish = frontend.spec_vggish()
+    tag = f'vggish B=1 {DATA_SECONDS} s'
+    got = frontend.log_mel(y16, vggish, True)
+    errs.append(check_exact(
+        tag, y16, vggish, got,
+        lambda y0: mel_np.vggish_log_mel(y0, 16000)))
+    framed = torch.from_numpy(frontend.frame_for_wire(
+        y16.cpu().numpy(), vggish)).cuda()
+    same = torch.equal(frontend.log_mel_frames(framed, vggish, True), got)
+    print(f'{tag}: framed entry bit-equal to the waveform: {same}',
+          flush=True)
+    require(same, 'K2x: VGGish framed entry differs from the waveform')
     # shorter than the centred pad (1024 samples): the reflection folds
     short_fast = []
     for n in (1, 2, 500, 1024):
@@ -1391,7 +1441,7 @@ def exact_kernel_cases() -> dict:
             short_fast.append(check_mel(f'{tag} K2', y, spec, got.shape[1],
                                         got)[0])
     return dict(max_abs_err=max(errs), short_k2_max_abs_err=max(short_fast),
-                tonal_k2_max_abs_err=tonal_k2, **timed)
+                tonal_k2_max_abs_err=tonal_k2, plans=plans, **timed)
 
 
 def extraction_phase() -> tuple[list, dict]:
@@ -1646,7 +1696,7 @@ def main() -> int:
              replaces='a2m/nn/pallas_gcn.py:879',
              launches=sv['launches']['gcn_stack_edge'], **stack, **edge),
         dict(name='log_mel_exact', route='cuda',
-             source='a2m_torch/csrc/log_mel.cu',
+             source='a2m_torch/csrc/log_mel_exact.cu',
              replaces='a2m/audio/pallas_mel.py:96',
              launches=data['extraction']['launches']['log_mel_exact'],
              max_abs_err=data['k2x']['max_abs_err'],
