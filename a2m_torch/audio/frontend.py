@@ -184,8 +184,7 @@ def fft_tables(spec: MelSpec, exact: bool = False) -> dict:
                twiddle=twiddles(spec.n_fft, dtype), mel_bins=bins,
                mel_weights=weights)
     if exact:
-        sched = mel_kernel.mel_schedule(
-            bins, weights, mel_kernel.exact_plan(spec.n_fft)['tpf'])
+        sched = mel_kernel.mel_schedule(bins, weights, spec.n_fft)
         out.update(fft_twiddle=mel_kernel.exact_twiddles(spec.n_fft),
                    sched_weights=sched[0], sched_index=sched[1],
                    mel_pieces=sched[2])

@@ -133,40 +133,52 @@ def exact_twiddles(n_fft: int) -> np.ndarray:
 
 
 def mel_schedule(mel_bins: np.ndarray, mel_weights: np.ndarray,
-                 threads: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """K2x's mel over the filterbank's nonzeros, balanced over a frame's
-    ``threads``: the nonzeros in mel order are cut into ``threads`` runs of
-    Q = ceil(nnz / threads) (the last ones shorter); thread t sums run t in
-    order and stores a partial sum wherever a mel ends inside the run or
-    the run ends (a piece); mel j is then the sum, in order, of its pieces
-    ``pieces[j]:pieces[j + 1]``.  Returns ``weights`` (rows, threads)
-    float64, ``index`` (rows, threads) int32 and ``pieces`` (n_mels + 1,)
-    int32, rows being Q rounded up to a multiple of 8 (the kernel loads 8
+                 n_fft: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """K2x's mel over the filterbank's nonzeros, spread over the ``tpf``
+    threads of a frame (:func:`exact_plan`) by bin: thread t takes the
+    nonzeros of bins [t B, (t + 1) B) (B = m / tpf for the m + 1 bins, the
+    last thread also bin m), in bin order and, within a bin, mel order.  A
+    bin lies in at most two filters, adjacent ones, so a thread keeps two
+    running sums picked by the mel's parity, and stores one as a partial sum
+    (a piece) at its mel's last nonzero in the thread's bins; mel j is then
+    the sum, in order, of its pieces ``pieces[j]:pieces[j + 1]`` (in thread
+    order).  A thread holds at most 2 B nonzeros (ceil(nnz / tpf) at
+    log_mel_512).  Returns ``weights`` (rows, tpf) float64, ``index``
+    (rows, tpf) int32 and ``pieces`` (n_mels + 1,) int32, rows being the
+    most a thread holds rounded up to a multiple of 8 (the kernel loads 8
     steps at a time; the padding has weight 0).  ``index`` holds the bin's
-    slot among the kernel's bins, k + k // 16 (a pad every 16 bins: runs
-    start ~16 bins apart, and the pad sends them to distinct banks), plus
-    (piece + 1) << 16 where a piece ends.  Read step by step, consecutive
-    threads read consecutive entries.  A fixed schedule: every frame's sums
-    run in the same order."""
+    slot among the kernel's bins, k + k // 16 (a pad every 16 bins: step by
+    step the threads read bins ~B apart, which the pad sends to distinct
+    banks), the mel's parity at bit 15 and (piece + 1) << 16 where a piece
+    ends.  A fixed schedule: every frame's sums run in the same order."""
+    plan = exact_plan(n_fft)
+    threads, width = plan['tpf'], plan['m'] // plan['tpf']
     first, count, offset = (mel_bins[:, c].astype(np.int64)
                             for c in range(3))
-    nnz = int(count.sum())
-    q = max(1, -(-nnz // threads))
-    mel_of = np.repeat(np.arange(len(count)), count)
+    n_mels, nnz = len(count), int(count.sum())
+    mel_of = np.repeat(np.arange(n_mels), count)
     bin_of = first[mel_of] + np.arange(nnz) - offset[mel_of]
-    weights = np.zeros((-(-q // 8) * 8, threads))
-    index = np.zeros(weights.shape, np.int64)
-    piece_mel = []                    # pieces in nonzero order: mel order
-    for t in range(threads):
-        end = min((t + 1) * q, nnz)
-        for n in range(t * q, end):
-            weights[n - t * q, t] = mel_weights[n]
-            index[n - t * q, t] = bin_of[n] + (bin_of[n] >> 4)
-            if n + 1 == end or mel_of[n + 1] != mel_of[n]:
-                piece_mel.append(mel_of[n])
-                index[n - t * q, t] += len(piece_mel) << 16
-    per_mel = np.bincount(np.asarray(piece_mel, np.int64),
-                          minlength=len(count))
+    if nnz and np.bincount(bin_of).max() > 2:
+        raise ValueError('mel_schedule: a bin lies in more than two filters')
+    thread_of = np.minimum(bin_of // width, threads - 1)
+    runs = [sorted(np.flatnonzero(thread_of == t),
+                   key=lambda n: (bin_of[n], mel_of[n]))
+            for t in range(threads)]
+    rows = -(-max(1, max(len(r) for r in runs)) // 8) * 8
+    weights = np.zeros((rows, threads))
+    index = np.zeros((rows, threads), np.int64)
+    ends = []                        # (mel, thread, row) of each piece
+    for t, run in enumerate(runs):
+        for q, n in enumerate(run):
+            weights[q, t] = mel_weights[n]
+            index[q, t] = (bin_of[n] + (bin_of[n] >> 4)
+                           + ((mel_of[n] & 1) << 15))
+            if all(mel_of[r] != mel_of[n] for r in run[q + 1:]):
+                ends.append((mel_of[n], t, q))
+    ends.sort()
+    for piece, (_, t, q) in enumerate(ends):
+        index[q, t] += (piece + 1) << 16
+    per_mel = np.bincount([e[0] for e in ends], minlength=n_mels)
     pieces = np.concatenate([[0], np.cumsum(per_mel)]).astype(np.int32)
     return weights, index.astype(np.int32), pieces
 

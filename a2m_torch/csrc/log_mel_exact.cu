@@ -50,18 +50,18 @@
 //   transforms; frames that reach the reflect pad or the signal's end, and
 //   a row's first, take the index path;
 // - the mel over the filterbank's nonzeros by a fixed schedule built on the
-//   host (mel_kernel.mel_schedule): each of a frame's threads sums an equal
-//   run of nonzeros (8 steps' loads in flight) into partial sums, which
-//   each mel adds in order; the bins sit one pad double every 16, so runs
-//   ~16 bins apart read distinct banks.  No
+//   host (mel_kernel.mel_schedule): each of a frame's threads sums the
+//   nonzeros of its m / TPF bins (8 steps' loads in flight) into partial
+//   sums, which each mel adds in order; the bins sit one pad double every
+//   16, so threads reading bins ~16 apart hit distinct banks.  No
 //   atomics; every frame's bits depend only on its samples, reruns are
 //   bit-equal.
 //
 // Layout: y (B, n_samples) f32; window (n_fft,) double, the window as the
 // frame of n_fft points sees it; twiddle (exact_twiddles(n_fft)) double
 // pairs; sched_w, sched_i (rows, a multiple of 8; m / 16 or 1) double and
-// int32 (the bin's padded slot k + k / 16, plus (piece + 1) << 16 where a
-// partial sum ends); pieces (n_mels + 1,) int32;
+// int32 (the bin's padded slot k + k / 16, the mel's parity at bit 15,
+// (piece + 1) << 16 where a partial sum ends); pieces (n_mels + 1,) int32;
 // out (B, n_frames, n_mels) f32.  n_fft a power of two from 4 to 2048,
 // frame_len <= n_fft, n_mels <= 128.  Frame t starts at t * hop in the
 // signal padded by `pad` samples of numpy's repeated reflection.
@@ -416,7 +416,7 @@ __device__ __forceinline__ void write_pass(const double2* v, double2* xc,
 }
 
 // slot of bin k among the m + 1 bins: one pad double every 16 bins, so
-// that the mel's threads, whose runs start ~16 bins apart, read distinct
+// that the mel's threads, which read bins ~16 apart step by step, hit distinct
 // banks (the schedule's indices carry the padded slot)
 __device__ __forceinline__ int bin_slot(int k) { return k + (k >> 4); }
 
@@ -600,11 +600,13 @@ __global__ void __launch_bounds__(kGroup* kMaxGroups, 1)
     group_sync(g);
     PROF(5)
 
-    // the mel: this thread's run of nonzeros, a partial sum where a mel or
-    // the run ends; 8 steps' loads in flight at a time (the schedule's rows
-    // come in multiples of 8)
+    // the mel: this thread's bins' nonzeros, two running sums picked by
+    // the mel's parity (a bin lies in at most two adjacent filters), a
+    // partial sum stored where a mel's last nonzero in these bins lies; 8
+    // steps' loads in flight at a time (the schedule's rows come in
+    // multiples of 8)
     if (active) {
-      double acc = 0.0;
+      double acc0 = 0.0, acc1 = 0.0;
       for (int q0 = 0; q0 < a.sched_rows; q0 += 8) {
         int idx[8];
         double wt[8], pv[8];
@@ -614,13 +616,16 @@ __global__ void __launch_bounds__(kGroup* kMaxGroups, 1)
           wt[u] = schw[(q0 + u) * TPF + t];
         }
 #pragma unroll
-        for (int u = 0; u < 8; ++u) pv[u] = xs[idx[u] & 0xffff];
+        for (int u = 0; u < 8; ++u) pv[u] = xs[idx[u] & 0x7fff];
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
-          acc = fma(pv[u], wt[u], acc);
+          const bool odd = idx[u] & 0x8000;
+          const double sum = fma(pv[u], wt[u], odd ? acc1 : acc0);
           const int end = idx[u] >> 16;
-          if (end) part[end - 1] = acc;
-          acc = end ? 0.0 : acc;
+          if (end) part[end - 1] = sum;
+          const double next = end ? 0.0 : sum;
+          acc0 = odd ? acc0 : next;
+          acc1 = odd ? next : acc1;
         }
       }
     }
@@ -663,9 +668,9 @@ Params layout(int n_mels, int sched_rows, int frame_len, int hop,
   a.off_si = a.off_sw + align16(8 * sched_rows * TPF);
   a.off_pc = a.off_si + align16(4 * sched_rows * TPF);
   a.off_groups = a.off_pc + align16(4 * (n_mels + 1));
-  // padded bins and partial sums (at most n_mels + TPF - 1 pieces) after
-  // the FFT
-  const int bins = m + 1 + (m >> 4) + n_mels + TPF;
+  // padded bins and partial sums (at most n_mels + 2 (TPF - 1) pieces)
+  // after the FFT
+  const int bins = m + 1 + (m >> 4) + n_mels + 2 * TPF;
   const int points2 = 2 * (m + (m >> 4));  // the padded first exchange
   const int region = points2 > bins ? points2 : bins;
   a.region = (region + 1) & ~1;
