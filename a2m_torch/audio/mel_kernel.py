@@ -183,6 +183,23 @@ def mel_schedule(mel_bins: np.ndarray, mel_weights: np.ndarray,
     return weights, index.astype(np.int32), pieces
 
 
+def exact_launch(n_fft: int, n_mels: int, sched_rows: int, frame_len: int,
+                 hop: int) -> dict:
+    """K2x's launch plan on the current CUDA device, from the kernel's own
+    ``a2m_log_mel_exact_info``: frames and threads a block, dynamic shared
+    bytes, blocks an SM, registers, spill bytes, the card's SMs (the most
+    blocks a launch takes) and threads a frame."""
+    from a2m_torch import _build
+    lib = _build.load('log_mel_exact')
+    out = np.zeros(8, np.int32)
+    _build.check(lib, lib.a2m_log_mel_exact_info(
+        n_fft, n_mels, sched_rows, frame_len, hop, out.ctypes.data),
+        'log_mel_exact_info')
+    return dict(zip(('frames_a_block', 'threads', 'smem_bytes',
+                     'blocks_per_sm', 'registers', 'spill_bytes', 'sms',
+                     'threads_a_frame'), map(int, out)))
+
+
 def reflect_index(s: torch.Tensor, n: int) -> torch.Tensor:
     """Indices ``s`` (any integers) of a signal of ``n`` samples extended by
     endless reflection, folded into ``[0, n)``: numpy's ``mode='reflect'``,

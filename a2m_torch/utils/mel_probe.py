@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from a2m_torch import _build
-from a2m_torch.audio import frontend
+from a2m_torch.audio import frontend, mel_kernel
 from a2m_torch.utils.conv1d_probe import cuda_ms
 
 SOURCE = 'log_mel_exact'
@@ -42,18 +42,6 @@ ENTRY = 'a2m_log_mel_exact'
 PHASES = ('wait', 'gather', 'pass1', 'pass2', 'pass3', 'split', 'mel',
           'log_store')
 SR, SECONDS, BATCH = 45600, 60, 32
-
-
-def plan(lib, spec) -> dict:
-    """K2x's launch plan at ``spec`` (``a2m_log_mel_exact_info``)."""
-    t = frontend.fft_tables(spec, exact=True)
-    out = np.zeros(8, np.int32)
-    _build.check(lib, lib.a2m_log_mel_exact_info(
-        spec.n_fft, spec.n_mels, t['sched_weights'].shape[0],
-        t['frame_len'], spec.hop_length, out.ctypes.data), 'mel_probe')
-    return dict(zip(('frames_a_block', 'threads', 'smem_bytes',
-                     'blocks_per_sm', 'registers', 'spill_bytes', 'sms',
-                     'threads_a_frame'), map(int, out)))
 
 
 def build_variants() -> tuple[dict, dict]:
@@ -108,7 +96,12 @@ def main() -> None:
 
     row = {}
     port = _build._loaded.get(SOURCE)
+    t = frontend.fft_tables(spec, exact=True)
     try:
+        _build._loaded[SOURCE] = libs['port']   # the port's source and flags
+        info = mel_kernel.exact_launch(spec.n_fft, spec.n_mels,
+                                       t['sched_weights'].shape[0],
+                                       t['frame_len'], spec.hop_length)
         for name, lib in libs.items():
             _build._loaded[SOURCE] = lib
             row[f'{name}_ms'] = cuda_ms(call, 10)
@@ -123,7 +116,6 @@ def main() -> None:
             _build._loaded[SOURCE] = port
     counters = np.zeros((1024, 8), np.uint64)
     _build.check(prof, read_profile(counters.ctypes.data), 'mel_probe')
-    info = plan(libs['port'], spec)
     sms = info['sms']
     cycles = counters[:sms].astype(np.float64).mean(0)
     # the profiled thread is lane 0 of its block's first group

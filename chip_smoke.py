@@ -1340,18 +1340,11 @@ def time_mel_exact(tag: str, y, spec) -> dict:
 
 def k2x_plan(spec) -> dict:
     """K2x's launch plan at ``spec``, from the kernel's own entry."""
-    import numpy as np
-    from a2m_torch import _build
-    from a2m_torch.audio import frontend
-    lib = _build.load('log_mel_exact')
+    from a2m_torch.audio import frontend, mel_kernel
     t = frontend.fft_tables(spec, exact=True)
-    out = np.zeros(8, np.int32)
-    _build.check(lib, lib.a2m_log_mel_exact_info(
-        spec.n_fft, spec.n_mels, t['sched_weights'].shape[0],
-        t['frame_len'], spec.hop_length, out.ctypes.data), 'log_mel_exact_info')
-    plan = dict(zip(('frames_a_block', 'threads', 'smem_bytes',
-                     'blocks_per_sm', 'registers', 'spill_bytes', 'sms',
-                     'threads_a_frame'), map(int, out)))
+    plan = mel_kernel.exact_launch(spec.n_fft, spec.n_mels,
+                                   t['sched_weights'].shape[0],
+                                   t['frame_len'], spec.hop_length)
     require(plan['blocks_per_sm'] >= 1 and plan['frames_a_block'] >= 1,
             f'K2x plan {plan}')
     return plan
