@@ -31,7 +31,18 @@ FAMILIES = {'log_mel_512': lambda: frontend.spec_log_mel_512(SR),
             'log_mel_400': frontend.spec_log_mel_400,
             'vggish': frontend.spec_vggish}
 
-torch.set_num_threads(min(2, torch.get_num_threads()))
+
+@pytest.fixture(autouse=True)
+def two_threads():
+    """At most two intra-op threads while a test of this module runs (the
+    mirror is many small numpy and torch steps), restored after it: other
+    modules' tests in the same worker keep their own."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def sub(t, s, plan, last):
