@@ -17,8 +17,8 @@
 // cores (the bound chip_smoke.py states) and 0.33 ms at the 34 TFLOP/s of
 // the fp64 pipes outside them, which an FFT uses (as a product, a 16- or
 // 32-point DFT costs ~10x its operations); ~438 MB of samples and output
-// take 0.13 ms.  Bound by operations.  PR 6's K2x (K2's radix-2 template
-// in double) took 4.33 ms: five shared-memory passes a frame of 2048 with
+// take 0.13 ms.  Bound by operations.  K2's radix-2 template run in double
+// took 4.33 ms here: five shared-memory passes a frame of 2048 with
 // conflicting twiddle and point accesses, one frame a block in 44 KB.  The
 // design here:
 // - a Stockham FFT of the m = n_fft / 2 packed complex points (even
@@ -47,8 +47,9 @@
 //   another: the hop of samples the next frame adds (or all of it, where
 //   hop >= frame_len) comes in by cp.async into a ring of frame_len + hop
 //   floats (10 KB at n_fft 2048: six groups fit) while the current frame
-//   transforms; frames that reach the reflect pad or the signal's end, and
-//   a row's first, take the index path;
+//   transforms, or the whole frame where the ring is free; frames that
+//   reach the reflect pad or the signal's end, and a row's first where the
+//   frame before it is still in the ring, take the index path;
 // - the mel over the filterbank's nonzeros by a fixed schedule built on the
 //   host (mel_kernel.mel_schedule): each of a frame's threads sums the
 //   nonzeros of its m / TPF bins (8 steps' loads in flight) into partial
