@@ -1,22 +1,30 @@
 """Configuration of the port: audio extraction, data, the generator, the
-discriminator, the GAN controller and the train steps.
+discriminator, the GAN controller, the train steps and the training run.
 
 Own copies of the dataclasses of ``a2m/config.py`` (``AudioConfig`` and
 ``DataConfig`` ``:17-70``, ``GeneratorConfig`` ``:73-107``,
 ``DiscriminatorConfig`` ``:111-130``, ``ControllerConfig`` ``:134-166``,
-and of ``TrainConfig`` ``:170-244`` the fields that the steps and the loop
-read), plus the GCN kernel switches (``fused_gcn``, ``fused_edge``,
+``TrainConfig`` ``:170-244``, ``MeshConfig`` and ``DistConfig``
+``:248-288``, ``Config`` ``:291-299``) and of ``BEST_METRICS``,
+``validate``, ``apply_overrides`` and ``config_grid`` (``:302-392``), plus
+the GCN kernel switches (``fused_gcn``, ``fused_edge``,
 ``fused_precise``).  ``AudioConfig.use_pallas`` becomes ``device``: in the
 port the device alone picks the log-mel kernel (CUDA) or its plain version
-(CPU).  The knobs that exist only for the TPU
-(``remat``, ``rng_impl``, ``donate_buffers``, ``log_mfu``, ``fused_tile``:
-each kernel here picks its own tile) have no counterpart here.
+(CPU).  The knobs that exist only for the TPU (``remat``, ``rng_impl``,
+``donate_buffers``, ``fused_tile``: each kernel here picks its own tile)
+have no counterpart here, so an override of one raises ``KeyError`` as any
+unknown field does.  ``MeshConfig`` and ``DistConfig`` exist so that a2m's
+override strings parse; :func:`validate` refuses what the port does not
+run yet: more than one device or process, and a ``compute_dtype`` other
+than ``'f32'``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional, Sequence
 
 
 @dataclass(frozen=True)
@@ -157,8 +165,24 @@ class TrainConfig:
     lambda_aux: float = 0.0
     #: L1 on the absolute normalised pose (0 = frame differences only)
     lambda_pos: float = 0.0
+    #: the run's directory: checkpoints under ``ckpt/`` (one file an epoch
+    #: and ``best_gen.npz``) and the loss history ``loss.npy``
+    save_dir: str = './save/multi_speaker'
+    save_every_epochs: int = 1
+    #: validation metric that selects the best-G checkpoint: 'val_g' is the
+    #: total dev G loss, 'pos' the absolute-position L1, 'val_pck' dev
+    #: PCK@0.2 (higher is better, the only one maximised)
+    best_metric: str = 'val_g'
     log_every_batches: int = 200
+    #: resume from the latest checkpoint under ``save_dir`` when there is one
+    resume: bool = True
+    #: warm-start G (and the pose statistics it carries) from a packed
+    #: best-G ``.npz`` or a directory holding ``best_gen.npz``; optimiser
+    #: state starts fresh.  A ``resume`` restore takes precedence.
+    init_from: str = ''
     controller: ControllerConfig = field(default_factory=ControllerConfig)
+    #: matmul/conv compute dtype; the port runs 'f32' only (``validate``)
+    compute_dtype: str = 'f32'
     #: route the gradient-free generator forwards (the fake generation in
     #: ``d_step``, and ``eval_step``) through the fused forward kernel while
     #: ``g_step`` keeps the generator's own setting.  None = on when the
@@ -166,6 +190,10 @@ class TrainConfig:
     fused_gcn_eval: Optional[bool] = None
     #: global-norm gradient clipping; 0 disables
     grad_clip_norm: float = 0.0
+    #: log each step's MFU once, from the timed steps of the first epoch
+    log_mfu: bool = True
+    #: write a ``torch.profiler`` trace of the first steps here when set
+    profile_dir: str = ''
     #: batches staged on the device ahead of the step by a worker thread
     #: (``Trainer._prefetch``); 0 stages each batch when it is consumed.
     #: 0 by default, unlike a2m's 2: on an H100 a batch of 128 in-memory
@@ -173,3 +201,127 @@ class TrainConfig:
     #: ``chip_smoke.py`` phase 10 showed the worker thread gaining.  A
     #: loader whose batches are slow to draw (lazy h5 reads) sets it.
     prefetch_batches: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Devices of a data/model mesh (a2m's GSPMD sharding).  The port trains
+    on one device: :func:`validate` refuses a larger mesh."""
+    data: int = 1                   # batch (data-parallel) axis; -1 = all
+    model: int = 1                  # channel-dim (tensor) axis
+    axis_names: tuple[str, str] = ('data', 'model')
+
+    def resolved_shape(self, n_devices: int) -> tuple[int, int]:
+        """(data, model) with -1 resolved against ``n_devices``."""
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else max(1, n_devices // model)
+        return data, model
+
+
+@dataclass(frozen=True)
+class DistConfig:
+    """Multi-process bootstrap (a2m's ``jax.distributed``).  The port runs
+    one process: :func:`validate` refuses any of these set."""
+    coordinator: str = ''      # 'host:port' of process 0; '' = one process
+    num_processes: int = 0     # total process count (0 = from env / auto)
+    process_id: int = -1       # this process's id (-1 = from env / auto)
+    auto: bool = False         # infer everything from the runtime
+
+
+@dataclass(frozen=True)
+class Config:
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+    discriminator: DiscriminatorConfig = field(
+        default_factory=DiscriminatorConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    dist: DistConfig = field(default_factory=DistConfig)
+
+
+#: validation metrics the eval step reports (train.best_metric choices)
+BEST_METRICS = ('val_g', 'val_d', 'reg', 'pos', 'gan', 'bone', 'angle',
+                'smooth', 'jerk', 'val_pck')
+
+
+def validate(cfg: Config) -> Config:
+    """Cross-field checks that would otherwise fail deep inside a step,
+    and refusals of what the port does not run yet (each names its ROADMAP
+    item).  Entry points (``Trainer.from_config``, ``python -m
+    a2m_torch.train``) call this; returns ``cfg`` unchanged."""
+    if cfg.train.best_metric not in BEST_METRICS:
+        raise ValueError(
+            f'train.best_metric={cfg.train.best_metric!r} not one of '
+            f'{BEST_METRICS}')
+    if cfg.train.lambda_aux > 0 and not cfg.discriminator.use_aux_classifier:
+        raise ValueError(
+            'train.lambda_aux > 0 requires discriminator.use_aux_classifier')
+    if cfg.train.compute_dtype != 'f32':
+        raise ValueError(
+            f'train.compute_dtype={cfg.train.compute_dtype!r}: the port '
+            f'trains in f32 only (bf16 through autocast is ROADMAP A12c)')
+    import torch
+    data, model = cfg.mesh.resolved_shape(max(1, torch.cuda.device_count()))
+    if data * model > 1:
+        raise ValueError(
+            f'mesh {data}x{model}: the port trains on one device '
+            f'(multi-device training is ROADMAP A13)')
+    d = cfg.dist
+    if d.coordinator or d.num_processes > 0 or d.auto:
+        raise ValueError(
+            'dist.*: the port runs one process (multi-process training is '
+            'ROADMAP A13)')
+    return cfg
+
+
+def _set_nested(cfg: Any, dotted: str, value: str) -> Any:
+    head, _, rest = dotted.partition('.')
+    if not hasattr(cfg, head):
+        raise KeyError(
+            f'unknown config field {head!r} on {type(cfg).__name__}')
+    if rest:
+        sub = _set_nested(getattr(cfg, head), rest, value)
+        return dataclasses.replace(cfg, **{head: sub})
+    cur = getattr(cfg, head)
+    if isinstance(cur, bool):
+        parsed: Any = value.lower() in ('1', 'true', 'yes')
+    elif isinstance(cur, int):
+        parsed = int(value)
+    elif isinstance(cur, float):
+        parsed = float(value)
+    elif isinstance(cur, tuple):
+        elem = type(cur[0]) if cur else str
+        parsed = tuple(elem(v) for v in value.split(','))
+    elif cur is None:
+        low = value.lower()
+        if low in ('true', 'false', 'yes', 'no'):
+            parsed = low in ('true', 'yes')
+        elif low in ('none', 'null'):
+            parsed = None
+        elif value.replace('.', '', 1).isdigit():
+            parsed = float(value) if '.' in value else int(value)
+        else:
+            parsed = value
+    else:
+        parsed = value
+    return dataclasses.replace(cfg, **{head: parsed})
+
+
+def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
+    """Apply ``key.path=value`` overrides, as a2m's CLI takes them.
+
+    Example: ``apply_overrides(cfg, ["data.batch_size=4",
+    "train.n_epochs=1"])``
+    """
+    for item in overrides:
+        key, _, value = item.partition('=')
+        cfg = _set_nested(cfg, key.strip(), value.strip())
+    return cfg
+
+
+def config_grid(base: Config, grid: dict[str, Sequence[str]]) -> list[Config]:
+    """Cartesian product of per-key value lists -> list of configs."""
+    keys = list(grid.keys())
+    return [apply_overrides(base, [f'{k}={v}' for k, v in zip(keys, values)])
+            for values in itertools.product(*(grid[k] for k in keys))]

@@ -176,6 +176,15 @@ def _lazy_window_slice(path2h5, modality: str, w, idx: int) -> np.ndarray:
     return np.asarray(out, np.float32)
 
 
+def _array_norm_stats(arrays: dict, modality: str):
+    """:func:`hdf5_io.load_norm_stats` over an in-memory interval."""
+    key = modality.replace('data', 'norm_stats')
+    if key == modality or f'{key}/mean' not in arrays:
+        return None
+    return (np.asarray(arrays[f'{key}/mean'], np.float32),
+            np.asarray(arrays[f'{key}/std'], np.float32))
+
+
 class IntervalData:
     """One interval's .h5 -> float32 arrays + sliding windows
     (reference MiniData, dataUtils.py:510-729).
@@ -185,14 +194,24 @@ class IntervalData:
     dataUtils.py:111-113).  ``lazy_intervals=True`` reads only shape
     metadata here and reads each window's rows straight from the h5 file
     at access time (:func:`_lazy_window_slice`, pooled open handles)
-    instead."""
+    instead.
+
+    ``arrays`` (``{h5 dataset name: array}``, as
+    :func:`a2m_torch.data.synthetic.synth_interval_arrays` gives them)
+    takes the place of the file, which is then not opened: ``path2h5``
+    only names the interval.  Text modalities and lazy loading need the
+    file."""
 
     def __init__(self, path2h5, modalities: Sequence[str],
                  fs_new: Sequence[int], time: float,
                  modality_classes: dict, window_hop: int = 0, style: int = 0,
                  repeat_text: int = 1, text_in_modalities: bool = False,
                  filler: int = 0, exact_windows: bool = False,
-                 lazy_intervals: bool = False, **kwargs):
+                 lazy_intervals: bool = False, arrays: dict | None = None,
+                 **kwargs):
+        if arrays is not None and (lazy_intervals or text_in_modalities):
+            raise ValueError('IntervalData(arrays=...) holds no text '
+                             'table and reads no file lazily')
         self.exact_windows = exact_windows
         self.lazy = lazy_intervals
         self.path2h5 = path2h5
@@ -213,7 +232,9 @@ class IntervalData:
                 self.shapes.append(
                     hdf5_io.dataset_shape(self.path2h5, modality))
             else:
-                arr = hdf5_io.load_array(self.path2h5, modality, np.float32)
+                arr = (hdf5_io.load_array(self.path2h5, modality, np.float32)
+                       if arrays is None
+                       else np.asarray(arrays[modality]).astype(np.float32))
                 self.data.append(arr)
                 self.shapes.append(arr.shape)
 
@@ -222,7 +243,9 @@ class IntervalData:
         self.norm_stats: dict[str, tuple[np.ndarray, np.ndarray]] = {}
         for modality in self.modalities:
             if 'pose' in modality:
-                stats = hdf5_io.load_norm_stats(self.path2h5, modality)
+                stats = (hdf5_io.load_norm_stats(self.path2h5, modality)
+                         if arrays is None
+                         else _array_norm_stats(arrays, modality))
                 if stats is not None:
                     self.norm_stats[modality] = stats
 

@@ -1,9 +1,12 @@
 """Synthetic PATS fixture generator.
 
 The port's own copy of ``a2m/data/synthetic.py``: the same seed gives the
-same files.  :func:`synth_pose` and the envelopes are numpy alone;
-:func:`synth_interval` and :func:`make_synthetic_pats` write h5 files and
-the master CSV, and import ``h5py`` and ``pandas`` when they do.
+same files.  :func:`synth_pose`, the envelopes and
+:func:`synth_interval_arrays` are numpy alone; :func:`synth_interval` and
+:func:`make_synthetic_pats` write h5 files and the master CSV, and import
+``h5py`` and ``pandas`` when they do.  :func:`synthetic_loader` builds the
+fixture of :func:`make_synthetic_pats` in memory, as the port's
+``DataLoader`` would read it, for a machine without ``h5py``.
 
 It creates a miniature on-disk PATS tree with the exact schema the loader
 expects (reference h5_loader.py:119-195): the hermetic test substrate the
@@ -85,31 +88,16 @@ def _smooth_envelopes(n_frames: int, rng: np.random.Generator,
     return np.stack([np.interp(t, np.arange(n_knots), k) for k in knots])
 
 
-def synth_interval(path2h5, duration_s: float, rng: np.random.Generator,
-                   with_text: bool = False, correlated: bool = False,
-                   with_norm_stats: bool = False,
-                   deterministic: bool = False,
-                   det_grid: str = 'stride') -> None:
-    """Write one interval .h5 with pose/audio(/text) datasets.
-
-    ``correlated=True`` makes the pose motion amplitude follow a smooth
-    "audio energy" envelope that is also written into the mel features —
-    a learnable audio->motion mapping for end-to-end training validation.
-    NOTE: only motion *statistics* are predictable from audio in this mode
-    (sinusoid phases are random), so a mean-pose predictor is near-optimal
-    for position metrics like PCK.
-
-    ``deterministic=True`` instead makes pose a deterministic function of
-    the audio: K smooth per-band envelopes drive both the mel band groups
-    and a fixed global pose basis (``pose = rest + sum_k env_k * basis_k``)
-    — absolute joint positions are recoverable from the spectrogram, so a
-    trained model can beat the mean-pose predictor on PCK.
-
-    ``with_text`` writes word-piecewise-constant ``text/{w2v,bert,tokens}``
-    plus the ``text/meta`` alignment table (via
-    :func:`a2m_torch.data.dataset.write_text_meta`).  ``with_norm_stats``
-    writes cached ``pose/norm_stats/{mean,std}`` (reference
-    dataUtils.py:563-582).
+def synth_interval_arrays(duration_s: float, rng: np.random.Generator,
+                          with_text: bool = False, correlated: bool = False,
+                          with_norm_stats: bool = False,
+                          deterministic: bool = False,
+                          det_grid: str = 'stride') -> dict:
+    """One interval's datasets, ``{h5 dataset name: array}`` in the dtypes
+    :func:`synth_interval` writes, drawn from ``rng`` in its order; with
+    ``with_text`` also ``'text/meta'``, the word table (``start_frame``,
+    ``end_frame``, ``Word``).  numpy alone: a caller without ``h5py``
+    builds the fixture in memory.  The modes are :func:`synth_interval`'s.
     """
     n_pose = int(duration_s * constants.POSE_FPS)
     fs512 = constants.AUDIO_FS_MAP['log_mel_512']
@@ -177,39 +165,75 @@ def synth_interval(path2h5, duration_s: float, rng: np.random.Generator,
     silence = rng.integers(0, 2, 2 * (n_pose - 1)).astype(np.int64)
     silence[1::2] = 0
 
-    with hdf5_io.h5_open(path2h5, 'w') as h5:
-        h5.create_dataset('pose/data', data=pose.astype(np.float64))
-        h5.create_dataset('pose/normalize', data=pose.astype(np.float64))
-        h5.create_dataset('audio/log_mel_512', data=mel512.astype(np.float64))
-        h5.create_dataset('audio/log_mel_400', data=mel400.astype(np.float64))
-        h5.create_dataset('audio/silence', data=silence)
-        if with_norm_stats:
-            h5.create_dataset('pose/norm_stats/mean',
-                              data=pose.mean(axis=0).astype(np.float64))
-            h5.create_dataset('pose/norm_stats/std',
-                              data=pose.std(axis=0).astype(np.float64))
-        if with_text:
-            # word-piecewise-constant features (so the tokens-only boundary
-            # detection path in IntervalData also finds real word starts)
-            n_words = max(2, int(duration_s))
-            bounds = np.linspace(0, n_pose, n_words + 1).astype(np.int64)
-            words = [TEXT_VOCAB[w % len(TEXT_VOCAB)] for w in range(n_words)]
-            w2v = np.zeros((n_pose, 300))
-            bert = np.zeros((n_pose, 768), np.float32)
-            tokens = np.zeros(n_pose, np.int64)
-            for st, en in zip(bounds[:-1], bounds[1:]):
-                w2v[st:en] = rng.standard_normal(300)
-                bert[st:en] = rng.standard_normal(768).astype(np.float32)
-                tokens[st:en] = rng.integers(1, 30000)
-            h5.create_dataset('text/w2v', data=w2v)
-            h5.create_dataset('text/bert', data=bert)
-            h5.create_dataset('text/tokens', data=tokens)
+    out = {'pose/data': pose.astype(np.float64),
+           'pose/normalize': pose.astype(np.float64),
+           'audio/log_mel_512': mel512.astype(np.float64),
+           'audio/log_mel_400': mel400.astype(np.float64),
+           'audio/silence': silence}
+    if with_norm_stats:
+        out['pose/norm_stats/mean'] = pose.mean(axis=0).astype(np.float64)
+        out['pose/norm_stats/std'] = pose.std(axis=0).astype(np.float64)
     if with_text:
+        # word-piecewise-constant features (so the tokens-only boundary
+        # detection path in IntervalData also finds real word starts)
+        n_words = max(2, int(duration_s))
+        bounds = np.linspace(0, n_pose, n_words + 1).astype(np.int64)
+        words = [TEXT_VOCAB[w % len(TEXT_VOCAB)] for w in range(n_words)]
+        w2v = np.zeros((n_pose, 300))
+        bert = np.zeros((n_pose, 768), np.float32)
+        tokens = np.zeros(n_pose, np.int64)
+        for st, en in zip(bounds[:-1], bounds[1:]):
+            w2v[st:en] = rng.standard_normal(300)
+            bert[st:en] = rng.standard_normal(768).astype(np.float32)
+            tokens[st:en] = rng.integers(1, 30000)
+        out['text/w2v'] = w2v
+        out['text/bert'] = bert
+        out['text/tokens'] = tokens
+        out['text/meta'] = dict(start_frame=bounds[:-1],
+                                end_frame=bounds[1:], Word=words)
+    return out
+
+
+def synth_interval(path2h5, duration_s: float, rng: np.random.Generator,
+                   with_text: bool = False, correlated: bool = False,
+                   with_norm_stats: bool = False,
+                   deterministic: bool = False,
+                   det_grid: str = 'stride') -> None:
+    """Write one interval .h5 with pose/audio(/text) datasets.
+
+    ``correlated=True`` makes the pose motion amplitude follow a smooth
+    "audio energy" envelope that is also written into the mel features —
+    a learnable audio->motion mapping for end-to-end training validation.
+    NOTE: only motion *statistics* are predictable from audio in this mode
+    (sinusoid phases are random), so a mean-pose predictor is near-optimal
+    for position metrics like PCK.
+
+    ``deterministic=True`` instead makes pose a deterministic function of
+    the audio: K smooth per-band envelopes drive both the mel band groups
+    and a fixed global pose basis (``pose = rest + sum_k env_k * basis_k``)
+    — absolute joint positions are recoverable from the spectrogram, so a
+    trained model can beat the mean-pose predictor on PCK.
+
+    ``with_text`` writes word-piecewise-constant ``text/{w2v,bert,tokens}``
+    plus the ``text/meta`` alignment table (via
+    :func:`a2m_torch.data.dataset.write_text_meta`).  ``with_norm_stats``
+    writes cached ``pose/norm_stats/{mean,std}`` (reference
+    dataUtils.py:563-582).
+    """
+    arrays = synth_interval_arrays(duration_s, rng, with_text=with_text,
+                                   correlated=correlated,
+                                   with_norm_stats=with_norm_stats,
+                                   deterministic=deterministic,
+                                   det_grid=det_grid)
+    meta = arrays.pop('text/meta', None)
+    with hdf5_io.h5_open(path2h5, 'w') as h5:
+        for name, data in arrays.items():
+            h5.create_dataset(name, data=data)
+    if meta is not None:
         # via the public write path (pandas-HDF when pytables exists,
         # plain-h5 here) so fixtures exercise what users write
         from a2m_torch.data.dataset import write_text_meta
-        write_text_meta(path2h5, dict(start_frame=bounds[:-1],
-                                      end_frame=bounds[1:], Word=words))
+        write_text_meta(path2h5, meta)
 
 
 def make_synthetic_pats(root, speakers=('oliver', 'noah'),
@@ -244,3 +268,58 @@ def make_synthetic_pats(root, speakers=('oliver', 'noah'),
     import pandas as pd
     pd.DataFrame(rows).to_csv(root / 'cmu_intervals_df.csv', index=False)
     return root
+
+
+class _Rates:
+    """Frame rates of the two modalities, for windowing in memory (what
+    the data loader's modality classes give)."""
+
+    @staticmethod
+    def fs(modality: str) -> int:
+        if modality.startswith('pose'):
+            return constants.POSE_FPS
+        return constants.AUDIO_FS_MAP[modality.split('/')[-1]]
+
+
+def synthetic_loader(speakers=('oliver', 'noah'),
+                     intervals_per_speaker: int = 4, duration_s: float = 12.0,
+                     seed: int = 0, deterministic: bool = False,
+                     splits=('train', 'train', 'dev', 'test'),
+                     batch_size: int = 128, window_hop: int = 5,
+                     max_batches: dict | None = None):
+    """The fixture :func:`make_synthetic_pats` writes with these arguments,
+    built in memory and cut into windows as ``DataLoader(speaker=speakers,
+    batch_size=batch_size, window_hop=window_hop, seed=seed)`` reads it
+    from the files (pose and ``log_mel_512`` at 15 fps, windows of 4.3 s,
+    the train split shuffled): an object with ``.train``, ``.dev`` and
+    ``.test`` Batchers.  ``max_batches`` caps a split's batches an epoch
+    (``{'train': 4, 'dev': 1}``)."""
+    from types import SimpleNamespace
+
+    from a2m_torch.data.dataset import (Batcher, ConcatIntervals,
+                                        IntervalData, RandomSampler,
+                                        SequentialSampler)
+    modalities = ('pose/data', 'audio/log_mel_512')
+    rng = np.random.default_rng(seed)
+    by_split: dict[str, list] = {'train': [], 'dev': [], 'test': []}
+    iid = 100000
+    for style, sp in enumerate(speakers):
+        for k in range(intervals_per_speaker):
+            iid += 1
+            arrays = synth_interval_arrays(duration_s, rng,
+                                           deterministic=deterministic)
+            by_split[splits[k % len(splits)]].append((str(iid), IntervalData(
+                f'{sp}/{iid}.h5', modalities, (15, 15), 4.3,
+                {m: _Rates for m in modalities}, window_hop=window_hop,
+                style=style, arrays=arrays)))
+    caps = max_batches or {}
+    out = {}
+    for name, intervals in by_split.items():
+        # the loader takes each split's intervals in sorted id order
+        data = ConcatIntervals([d for _, d in sorted(intervals,
+                                                     key=lambda x: x[0])])
+        sampler = (RandomSampler(len(data), seed=seed) if name == 'train'
+                   else SequentialSampler(len(data)))
+        out[name] = Batcher(data, batch_size, sampler=sampler,
+                            max_batches=caps.get(name))
+    return SimpleNamespace(**out)

@@ -1,6 +1,8 @@
 """Training loop: the controller-driven GAN schedule
 (``a2m/train/loop.py:424-528``), validation (``:569-585``), the style ids
-(``:353-371``) and the background prefetch (``:373-422``).
+(``:353-371``), the background prefetch (``:373-422``), checkpoints,
+resume, warm start and best-G selection (``:203-269``, ``:538-624``), and
+the MFU line and trace of the first steps (``:323-351``, ``:460-522``).
 
 :class:`Trainer` runs over any iterable of batches, either a2m's dicts (as
 the data loader's ``Batcher`` gives them: ``audio/log_mel_512``,
@@ -14,23 +16,37 @@ stream of its own, which the step's stream waits for).  Given a loader (an
 object with ``.train`` and ``.dev``), the trainer takes its batches and,
 when no ``mean``/``std`` are given, the neck-subtracted moments of
 ``.train``.
+
+Given a ``save_dir``, the trainer keeps its run there as a2m does:
+``ckpt/epoch_<n>.pt`` every ``save_every_epochs`` epochs
+(:class:`~a2m_torch.train.checkpoint.CheckpointManager`),
+``ckpt/best_gen.npz`` whenever ``best_metric`` improves, and ``loss.npy``;
+with ``resume`` it continues from the latest checkpoint there.
+:meth:`Trainer.from_config` builds the models and the trainer from a
+:class:`~a2m_torch.config.Config`, with its ``save_dir``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import queue
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from a2m_torch.config import (DiscriminatorConfig, GeneratorConfig,
-                              TrainConfig)
+from a2m_torch.config import (Config, DiscriminatorConfig, GeneratorConfig,
+                              TrainConfig, validate)
 from a2m_torch.data.normalization import get_mean_std_necksub
+from a2m_torch.train import checkpoint as ckpt_lib
 from a2m_torch.train.controller import DynamicGANTraining
 from a2m_torch.train.train_step import (init_states, make_train_steps,
                                         set_lr)
+from a2m_torch.utils import mfu as mfu_lib
+from a2m_torch.utils import profiling
 
 
 class Trainer:
@@ -43,11 +59,19 @@ class Trainer:
     (``.train``, ``.dev`` iterables of dict batches) replaces
     ``train_batches`` and ``dev_batches``, and gives ``mean``/``std`` from
     its train set's neck-subtracted moments when none are given (a2m's
-    ``get_mean_std_necksub(dataloader.train)``, ``loop.py:196-198``)."""
+    ``get_mean_std_necksub(dataloader.train)``, ``loop.py:196-198``).
+
+    ``save_dir`` keeps the run's checkpoints, best G and loss history
+    there, and with ``cfg.resume`` restores the latest checkpoint (models,
+    optimisers, controller, ``mean``/``std``, loss history; ``start_epoch``
+    follows it); without it nothing is written and no best G is selected.
+    ``cfg.init_from`` warm-starts G, and the pose statistics when the file
+    carries them, before a restore, which takes precedence."""
 
     def __init__(self, g_model, d_model, cfg: TrainConfig = TrainConfig(),
                  train_batches=(), dev_batches=(), mean=None, std=None,
-                 seed: int = 0, log=print, steps=None, loader=None):
+                 seed: int = 0, log=print, steps=None, loader=None,
+                 save_dir=None):
         self.cfg = cfg
         self.device = next(g_model.parameters()).device
         #: what the style ids depend on (modules without a ``config`` get
@@ -71,6 +95,82 @@ class Trainer:
         self.log = log
         self.loss_history: dict[str, list] = {
             'train_g': [], 'train_d': [], 'val_g': [], 'val_d': []}
+        self.save_dir = None if save_dir is None else Path(save_dir)
+        self.ckpt = (None if save_dir is None
+                     else ckpt_lib.CheckpointManager(self.save_dir / 'ckpt'))
+        self.start_epoch = 0
+        self._mfu_done = not cfg.log_mfu
+        self._mfu_times: dict[str, list] = {'g': [], 'd': []}
+        self._mfu_flops: dict[str, float] = {}
+        #: the MFU line's numbers once logged: ms, flops and mfu by step
+        self.mfu_report: dict[str, dict] = {}
+        if cfg.init_from:
+            self._init_from(cfg.init_from)
+        if cfg.resume and self.ckpt is not None:
+            restored = self.ckpt.restore(self.g_state, self.d_state)
+            if restored is not None:
+                self.controller.load_state_dict(restored['controller'])
+                self.mean = self._put(restored['mean'])
+                self.std = self._put(restored['std'])
+                self.start_epoch = restored['epoch'] + 1
+                self.loss_history = restored['extra'].get(
+                    'loss_history', self.loss_history)
+                self.log(f'resumed from epoch {restored["epoch"]}')
+
+    @classmethod
+    def from_config(cls, cfg: Config, loader, device='cuda', seed: int = 0,
+                    log=print) -> 'Trainer':
+        """The trainer of a :class:`~a2m_torch.config.Config` (validated):
+        a generator and a discriminator built from ``cfg.generator`` and
+        ``cfg.discriminator``, initialised from ``seed``, on ``device``, fed
+        by ``loader`` (``.train``, ``.dev``), keeping its run in
+        ``cfg.train.save_dir``.  On CUDA the generator's GCN stacks always
+        take the fused kernels (the stash-forward and backward kernels under
+        autograd, the forward kernel without), as ``build_trainer`` builds
+        them; a2m keeps them opt-in for its TPU compiler's minutes per
+        kernel, which the port does not pay.  On the CPU the config's
+        ``fused_gcn`` stands."""
+        from a2m_torch.device import resolve_device
+        from a2m_torch.models.discriminator import Discriminator
+        from a2m_torch.models.generator import Generator
+        cfg = validate(cfg)
+        dev = resolve_device(device)
+        g_cfg = cfg.generator
+        if dev.type == 'cuda':
+            g_cfg = dataclasses.replace(g_cfg, fused_gcn=True)
+            from a2m_torch import _build
+            _build.build(('gcn_stack', 'gcn_stack_bwd'))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            g_model = Generator(g_cfg)
+            d_model = Discriminator(cfg.discriminator)
+        return cls(g_model.to(dev), d_model.to(dev), cfg.train, seed=seed,
+                   log=log, loader=loader, save_dir=cfg.train.save_dir)
+
+    def _init_from(self, path) -> None:
+        """Warm-start G from a packed best-G ``.npz`` or a directory that
+        holds ``best_gen.npz``: its weights, and its pose statistics when
+        the file carries them (the model's outputs live in that
+        normalisation).  Optimisers start fresh."""
+        from a2m_torch.weights import from_jax_variables
+        p = Path(path)
+        if (p / 'imported_disc').exists():
+            raise ValueError(
+                f'train.init_from: {p / "imported_disc"} holds a reference '
+                f'discriminator, which the port cannot load until a2m/compat '
+                f'is ported (ROADMAP A14)')
+        best = ckpt_lib.load_any_generator_ckpt(p)
+        if best is None:
+            raise FileNotFoundError(
+                f'train.init_from: no best_gen.npz under {p}')
+        model = self.g_state.model
+        model.load_state_dict(from_jax_variables(best['variables'], model))
+        loaded = 'G'
+        if 'mean' in best:
+            self.mean = self._put(best['mean'])
+            self.std = self._put(best['std'])
+            loaded += '+stats'
+        self.log(f'initialized {loaded} from {p}')
 
     def _put(self, t):
         if t is None:
@@ -217,24 +317,41 @@ class Trainer:
             ctrl.update_loss_history(last_d, last_g)
 
         log_every = self.cfg.log_every_batches
+        profile_dir = self.cfg.profile_dir
+        n_batches = 0
         for i, (audio, pose, style, mask) in enumerate(
                 self._prefetch(self.train_batches)):
-            for _ in range(g_freq):
-                self.g_state, self.d_state, gm = self.g_step(
-                    self.g_state, self.d_state, audio, pose, self.mean,
-                    self.std, real_lp.smooth_real, real_lp.noise_std,
-                    self.key, style=style, mask=mask)
-            if pending is not None:
-                drain(pending)
-            dm = None
-            if ctrl.should_train_discriminator():
-                for _ in range(d_freq):
-                    self.d_state, self.g_state, dm = self.d_step(
-                        self.g_state, self.d_state, audio, pose, self.mean,
-                        self.std, real_lp.smooth_real, fake_lp.smooth_fake,
-                        real_lp.noise_std, self.key, style=style, mask=mask)
-            # else dm stays None: the drain reuses the last d_loss
-            pending = (gm, dm)
+            measuring = not self._mfu_done
+            tracing = measuring and bool(profile_dir) and i == 2
+            with (profiling.device_trace(profile_dir) if tracing
+                  else contextlib.nullcontext()) as trace:
+                for _ in range(g_freq):
+                    with profiling.trace_annotation('a2m.g_step'):
+                        self.g_state, self.d_state, gm = self._step(
+                            'g', measuring, self.g_step, self.g_state,
+                            self.d_state, audio, pose, self.mean, self.std,
+                            real_lp.smooth_real, real_lp.noise_std,
+                            self.key, style=style, mask=mask)
+                if pending is not None:
+                    drain(pending)
+                dm = None
+                if ctrl.should_train_discriminator():
+                    for _ in range(d_freq):
+                        with profiling.trace_annotation('a2m.d_step'):
+                            self.d_state, self.g_state, dm = self._step(
+                                'd', measuring, self.d_step, self.g_state,
+                                self.d_state, audio, pose, self.mean,
+                                self.std, real_lp.smooth_real,
+                                fake_lp.smooth_fake, real_lp.noise_std,
+                                self.key, style=style, mask=mask)
+                # else dm stays None: the drain reuses the last d_loss
+                pending = (gm, dm)
+            if tracing:
+                self.log(f'device trace -> {trace[0]}')
+            if (measuring and i >= (2 if profile_dir else 1)
+                    and len(self._mfu_times['g']) >= 2):
+                self._mfu_report(audio.shape[0])
+            n_batches += 1
             if i % log_every == log_every - 1:
                 # last_g/last_d lag one batch behind the display
                 rd, rg = ctrl.get_recent_avg_loss()
@@ -246,7 +363,53 @@ class Trainer:
                 self.loss_history['train_d'].append(last_d)
         if pending is not None:
             drain(pending)              # the final batch completes the history
+        if not self._mfu_done and self._mfu_times['g'] and n_batches:
+            # an epoch shorter than the report's threshold would otherwise
+            # keep measuring (and synchronising every step) for ever
+            self._mfu_report(audio.shape[0])
         return last_g, last_d
+
+    def _sync(self) -> None:
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    def _step(self, kind: str, measuring: bool, step, *args, **kwargs):
+        """``step(*args, **kwargs)``; while the MFU is measured, timed on
+        the host clock between two synchronisations, and its first call of
+        each kind counted by :func:`a2m_torch.utils.mfu.step_flops` (that
+        sample, which also holds the warm-up, is dropped from the time)."""
+        if not measuring:
+            return step(*args, **kwargs)
+        self._sync()
+        t0 = time.perf_counter()
+        if kind in self._mfu_flops:
+            out = step(*args, **kwargs)
+        else:
+            out, self._mfu_flops[kind] = mfu_lib.step_flops(
+                step, *args, **kwargs)
+        self._sync()
+        self._mfu_times[kind].append(time.perf_counter() - t0)
+        return out
+
+    def _mfu_report(self, batch: int) -> None:
+        """Log the MFU of ``g_step`` (and ``d_step`` when it ran) once, from
+        the median time of the measured steps after the first."""
+        self._mfu_done = True
+        dtype = self.cfg.compute_dtype
+        line = []
+        for kind, name in (('g', 'g_step'), ('d', 'd_step')):
+            times = self._mfu_times[kind]
+            if not times:
+                continue
+            secs = float(np.median(times[1:] or times))
+            flops = self._mfu_flops[kind]
+            self.mfu_report[name] = dict(
+                ms=secs * 1e3, flops=flops, samples=len(times[1:] or times),
+                mfu=mfu_lib.mfu(flops, secs, dtype, self.device))
+            self.log(mfu_lib.format_mfu_line(name, flops, secs, dtype,
+                                             self.device))
+            line.append(f'{batch / secs:.0f} samples/s ({kind})')
+        self.log('throughput: ' + ', '.join(line))
 
     def validate(self) -> dict[str, float]:
         """Mean of ``eval_step``'s metrics over ``dev_batches``."""
@@ -263,11 +426,41 @@ class Trainer:
             steps += 1
         return {k: v / max(steps, 1) for k, v in sums.items()}
 
+    def best_score(self, val: dict[str, float]) -> float:
+        """Scalar to minimise for best-G selection, per ``best_metric``
+        ('val_pck' is a quality metric: negated, so higher PCK wins)."""
+        m = self.cfg.best_metric
+        if m not in val:
+            raise KeyError(f'train.best_metric={m!r} not in validation '
+                           f'metrics {sorted(val)}')
+        return -val[m] if m == 'val_pck' else val[m]
+
+    def initial_best_score(self) -> float:
+        """The 'best' a resumed run starts from."""
+        hist = self.loss_history.get('best_score')
+        if hist:
+            return min(hist)
+        if self.cfg.best_metric == 'val_g':
+            # runs from before best_metric tracked the best by val_g
+            return min(self.loss_history['val_g'], default=float('inf'))
+        return float('inf')
+
+    def save_best(self, epoch: int, val: dict[str, float]) -> None:
+        self.loss_history.setdefault('best_score', []).append(
+            self.best_score(val))
+        self.ckpt.save_best_generator(self.g_state.model, self.mean,
+                                      self.std)
+        m = self.cfg.best_metric
+        self.log(f'new best G at epoch {epoch} ({m} {val[m]:.4f})')
+
     def fit(self, n_epochs: int | None = None) -> dict:
-        """``n_epochs`` of ``train_epoch`` + ``validate``; returns the loss
-        history."""
+        """Epochs ``start_epoch`` to ``n_epochs - 1`` of ``train_epoch`` +
+        ``validate``; with a ``save_dir``, best-G selection after each and a
+        checkpoint and ``loss.npy`` every ``save_every_epochs``.  Returns
+        the loss history."""
         n_epochs = self.cfg.n_epochs if n_epochs is None else n_epochs
-        for epoch in range(n_epochs):
+        best_val = self.initial_best_score()
+        for epoch in range(self.start_epoch, n_epochs):
             t0 = time.perf_counter()
             self.train_epoch(epoch)
             val = self.validate()
@@ -281,4 +474,20 @@ class Trainer:
                      f'smooth {val.get("smooth", 0):.4f} '
                      f'jerk {val.get("jerk", 0):.4f} | '
                      f'{time.perf_counter() - t0:.1f}s')
+            if self.ckpt is None:
+                continue
+            # an empty dev split gives no metrics to select on: a legitimate
+            # tiny-fixture configuration, not a mistyped metric name
+            if val:
+                score = self.best_score(val)
+                if score < best_val:
+                    best_val = score
+                    self.save_best(epoch, val)
+            if epoch % self.cfg.save_every_epochs == 0:
+                self.ckpt.save(epoch, self.g_state, self.d_state,
+                               self.controller.state_dict(), self.mean,
+                               self.std,
+                               extra=dict(loss_history=self.loss_history))
+                ckpt_lib.save_loss_history(self.save_dir / 'loss.npy',
+                                           self.loss_history)
         return self.loss_history

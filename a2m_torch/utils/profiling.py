@@ -18,14 +18,23 @@ wall time per call (host clock around a synchronised window), the summed
 kernel time per call, the device's idle share of the window, the kernel
 time per category (the port's kernels, convolutions, GEMMs, everything
 else) and the largest kernels.
+
+For the training loop (a2m's ``profiling.py:18-53``): :func:`trace_annotation`
+names a region in a trace (``torch.profiler.record_function``),
+:func:`device_trace` writes a ``torch.profiler`` trace of the code it
+wraps, and :class:`Timers` keeps host wall-clock totals by name.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import time
+from collections import defaultdict
+from pathlib import Path
 
 import torch
 
@@ -45,6 +54,53 @@ CATEGORIES = (
     ('gemm', ('gemm', 'cutlass', 'cublas')),
     ('copy', ('memcpy',)),
 )
+
+
+@contextlib.contextmanager
+def trace_annotation(name: str):
+    """Named region visible in a ``torch.profiler`` trace."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def device_trace(logdir):
+    """Trace the wrapped code with ``torch.profiler`` (the host and, where
+    there is one, the card) into a Chrome trace under ``logdir``; returns
+    the trace's path through the context's value, a list filled on exit."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    written: list[Path] = []
+    with profile(activities=activities) as prof:
+        yield written
+    Path(logdir).mkdir(parents=True, exist_ok=True)
+    path = Path(logdir) / f'trace_{os.getpid()}_{time.time_ns()}.json'
+    prof.export_chrome_trace(str(path))
+    written.append(path)
+
+
+class Timers:
+    """Cumulative host-side wall-clock timers."""
+
+    def __init__(self):
+        self.totals: dict[str, float] = defaultdict(float)
+        self.counts: dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def summary(self) -> dict[str, dict[str, float]]:
+        return {k: dict(total_s=self.totals[k], count=self.counts[k],
+                        mean_ms=1e3 * self.totals[k] / max(self.counts[k], 1))
+                for k in self.totals}
 
 
 def category(name: str) -> str:

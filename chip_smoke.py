@@ -99,7 +99,26 @@ each fatal on failure:
    (14 intervals to train, 2 to validate) into ``build_trainer(loader=...)``:
    one ``train_epoch`` of 4 batches and ``validate`` on 2 (K3/K4 x2 per G
    step, K1 x2 per D and eval step, K2/K2x x0), and ms per batch with
-   ``prefetch_batches`` 0 and 2.  Phases 6 and 9 also assert K2x x0.
+   ``prefetch_batches`` 0 and 2.  Phases 6 and 9 also assert K2x x0;
+11. train, checkpoint, resume and evaluate, as a user runs them: the det
+   fixture of ``scripts/full_training_campaign.py:52-67`` (speaker oliver,
+   5 intervals of 120 s, seed 0, deterministic; the recipe of
+   ``a2m_torch/testdata/harness_golden.json``) built in memory
+   (``data.synthetic.synthetic_loader``, window 64, hop 5, B = 128; 348
+   test clips); ``train.__main__.run`` on a Config from
+   ``apply_overrides`` (2 epochs of 4 batches and 1 dev batch,
+   ``best_metric=val_pck``, ``lambda_pos=1.0``) with the counts set to 0
+   (K3 and K4 x2 per G step, K1 x2 per D step and per dev batch, K2, K2x
+   and K5 x0), its per-epoch checkpoints, ``best_gen.npz`` and
+   ``loss.npy``, and its MFU line (finite); a second trainer on the same
+   directory resumes at epoch 2 with every parameter, BatchNorm buffer and
+   Adam moment bit-equal and the controller equal, and runs one more
+   epoch; the checkpoint's write and restore timed; then
+   ``eval.harness.evaluate_speaker`` on the 348 test clips with the
+   committed flagship, f32 GCN operands (PCK at alpha 0.2 and 0.1 within
+   2e-3 of the golden, L2 within 1e-3 relative) and bf16 (PCK within 1e-2),
+   K1 x2 per batch, and on the short run's ``best_gen.npz`` (finite, 348
+   clips).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -142,6 +161,9 @@ SERVE_STREAMS, SERVE_SECONDS, SERVE_WINDOWS = 8, 60, 27
 # tolerance against its float64 plain version (a2m's exact-mode bound
 # against the float64 golden, tests/test_audio_frontend.py:16)
 DATA_INTERVALS, DATA_SECONDS, EXACT_TOL = 16, 60, 1e-5
+# the harness against a2m's on the flagship (harness_golden.json): PCK and
+# L2 with f32 GCN operands, PCK with bf16 operands
+HARNESS_PCK_TOL, HARNESS_L2_RTOL, HARNESS_BF16_PCK_TOL = 2e-3, 1e-3, 1e-2
 
 
 def require(ok: bool, what: str) -> None:
@@ -1632,6 +1654,239 @@ def data_phase() -> dict:
     return dict(k2x=k2x, extraction=extraction, train=train)
 
 
+def kernel_launches() -> dict:
+    """Every kernel's launch count."""
+    from a2m_torch.audio import mel_kernel
+    return {'log_mel': mel_kernel.log_mel.launches,
+            'log_mel_exact': mel_kernel.log_mel.exact_launches,
+            **stack_launches()}
+
+
+def reset_kernel_launches() -> None:
+    from a2m_torch.audio import mel_kernel
+    reset_stack_launches()
+    mel_kernel.log_mel.launches = 0
+    mel_kernel.log_mel.exact_launches = 0
+
+
+def train_eval_phase() -> dict:
+    """Phase 11: train, checkpoint, resume and evaluate through the user's
+    entry points on the det fixture built in memory."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from a2m_torch.config import Config, GeneratorConfig, apply_overrides
+    from a2m_torch.data.synthetic import synthetic_loader
+    from a2m_torch.eval.harness import evaluate_speaker
+    from a2m_torch.train import checkpoint as ckpt_lib
+    from a2m_torch.train.__main__ import run
+    from a2m_torch.train.loop import Trainer
+
+    golden = json.loads((ROOT / 'a2m_torch' / 'testdata'
+                         / 'harness_golden.json').read_text())
+    recipe = golden['recipe']
+    manifest = json.loads((ROOT / 'artifacts'
+                           / 'flagship_manifest.json').read_text())
+    flagship = ROOT / recipe['ckpt']
+    n_train, n_dev, epochs = 4, 1, 2
+    t0 = time.perf_counter()
+    loader = synthetic_loader(
+        **{k: recipe[k] for k in ('speakers', 'intervals_per_speaker',
+                                  'duration_s', 'seed', 'deterministic',
+                                  'splits')},
+        batch_size=recipe['batch_size'], window_hop=recipe['window_hop'],
+        max_batches={'train': n_train, 'dev': n_dev})
+    n_test = sum(int(b['mask'].sum()) for b in loader.test)
+    test_batches = len(loader.test)
+    print(f'train_eval: det fixture in memory {time.perf_counter() - t0:.2f}'
+          f' s: {len(loader.train.dataset)} train, {len(loader.dev.dataset)}'
+          f' dev, {n_test} test windows ({test_batches} batches)', flush=True)
+    require(n_test == golden['n_clips'] == 348, f'{n_test} test clips')
+
+    stamps: list[tuple[float, str]] = []
+
+    def log(line: str) -> None:
+        stamps.append((time.perf_counter(), line))
+        print(f'train_eval: {line}', flush=True)
+
+    def same_state(a, b) -> bool:
+        for x, y in ((a.g_state, b.g_state), (a.d_state, b.d_state)):
+            sx, sy = x.model.state_dict(), y.model.state_dict()
+            if sx.keys() != sy.keys() or not all(
+                    torch.equal(sx[k], sy[k]) for k in sx):
+                return False
+            ox, oy = x.optimizer.state_dict(), y.optimizer.state_dict()
+            if ox['param_groups'] != oy['param_groups'] or not all(
+                    torch.equal(v, oy['state'][i][k])
+                    for i in ox['state'] for k, v in ox['state'][i].items()):
+                return False
+        return True
+
+    (ROOT / 'build').mkdir(exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        save_dir = Path(tmp) / 'run'
+        cfg = apply_overrides(Config(), [
+            f'train.save_dir={save_dir}', f'train.n_epochs={epochs}',
+            'train.best_metric=val_pck', 'train.lambda_pos=1.0'])
+        # ---- train --------------------------------------------------------
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        trainer = run(cfg, loader, log=log)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        g_steps = launches['gcn_stack_fwd'] // 2
+        d_steps = launches['gcn_stack'] // 2 - n_dev * epochs
+        print(f'train_eval: run() {run_s:.2f} s over {epochs} epochs of '
+              f'{n_train} batches, launches {launches}: {g_steps} G steps, '
+              f'{d_steps} D steps, {n_dev * epochs} dev batches', flush=True)
+        require(g_steps == 3 * n_train * epochs
+                and launches['gcn_stack_fwd'] == launches['gcn_stack_bwd']
+                == 2 * g_steps, f'train launches {launches}: expected K3 and '
+                f'K4 x2 per G step, 3 G steps a batch')
+        require(launches['gcn_stack'] % 2 == 0
+                and 0 < d_steps <= n_train * epochs,
+                f'train launches {launches}: expected K1 x2 per D step and '
+                f'per dev batch')
+        require(launches['log_mel'] == launches['log_mel_exact']
+                == launches['gcn_stack_edge'] == 0,
+                f'train launches {launches}: no K2, K2x or K5 launch')
+        ckpt = save_dir / 'ckpt'
+        for name in ('best_gen.npz', 'epoch_0.pt', 'epoch_1.pt'):
+            require((ckpt / name).is_file(), f'{name} not written')
+        require((save_dir / 'loss.npy').is_file(), 'loss.npy not written')
+        history = ckpt_lib.load_loss_history(save_dir / 'loss.npy')
+        require(history == trainer.loss_history, 'loss.npy')
+        mfu = trainer.mfu_report
+        require(any('MFU' in line for _, line in stamps), 'no MFU line')
+        for name in ('g_step', 'd_step'):
+            m = mfu.get(name, {}).get('mfu')
+            require(m is not None and 0 < m < 1 and m == m,
+                    f'{name} MFU {mfu.get(name)}')
+        val_t = [t for t, line in stamps if line.startswith('[Validation]')]
+        require(len(val_t) == epochs, f'{len(val_t)} validations')
+        # ---- checkpoint write and restore, timed --------------------------
+        timing = ckpt_lib.CheckpointManager(Path(tmp) / 'timing',
+                                            max_to_keep=1)
+        write_ms, restore_ms = [], []
+        for epoch in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = timing.save(epoch, trainer.g_state, trainer.d_state,
+                               trainer.controller.state_dict(), trainer.mean,
+                               trainer.std, extra=dict(
+                                   loss_history=trainer.loss_history))
+            write_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            timing.restore(trainer.g_state, trainer.d_state)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        best = timing.save_best_generator(trainer.g_state.model,
+                                          trainer.mean, trainer.std)
+        best_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_mb = path.stat().st_size / 1e6
+        print(f'train_eval: checkpoint {ckpt_mb:.1f} MB write ms '
+              f'{[round(v, 1) for v in write_ms]}, restore ms '
+              f'{[round(v, 1) for v in restore_ms]}; best_gen.npz '
+              f'{best.stat().st_size / 1e6:.1f} MB {best_ms:.1f} ms '
+              f'(host clock)', flush=True)
+        # ---- resume ---------------------------------------------------------
+        resumed = Trainer.from_config(cfg, loader, log=log)
+        require(resumed.start_epoch == epochs,
+                f'resumed at epoch {resumed.start_epoch}')
+        require(same_state(trainer, resumed),
+                'resumed state not bit-equal to the saved one')
+        require(resumed.controller.state_dict()
+                == trainer.controller.state_dict(), 'resumed controller')
+        require(torch.equal(resumed.mean, trainer.mean)
+                and torch.equal(resumed.std, trainer.std), 'resumed stats')
+        del trainer
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed.fit(epochs + 1)
+        torch.cuda.synchronize()
+        resumed_ms = (time.perf_counter() - t0) * 1e3
+        resumed_launches = kernel_launches()
+        require(resumed.ckpt.epochs() == [0, 1, 2],
+                f'checkpoints {resumed.ckpt.epochs()}')
+        require(len(resumed.loss_history['val_g']) == epochs + 1,
+                'resumed history')
+        require(resumed_launches['gcn_stack_fwd']
+                == resumed_launches['gcn_stack_bwd'] > 0,
+                f'resumed epoch launches {resumed_launches}')
+        epoch_ms = [(val_t[1] - val_t[0]) * 1e3, resumed_ms]
+        print(f'train_eval: resumed at epoch {epochs}, bit-equal; one epoch '
+              f'{resumed_ms:.1f} ms, launches {resumed_launches}', flush=True)
+        del resumed
+        # ---- evaluate -------------------------------------------------------
+        evals = {}
+        for tag, path, precise in (('flagship_f32', flagship, True),
+                                   ('flagship_bf16', flagship, False),
+                                   ('flagship_bf16_again', flagship, False),
+                                   ('short_run', ckpt / 'best_gen.npz',
+                                    False)):
+            cfg_e = Config(generator=GeneratorConfig(fused_precise=precise))
+            reset_kernel_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = evaluate_speaker(None, recipe['speaker'], path,
+                                   batch_size=recipe['batch_size'],
+                                   alpha=tuple(recipe['alpha']), cfg=cfg_e,
+                                   device='cuda', loader=loader)
+            torch.cuda.synchronize()
+            res['wall_ms'] = (time.perf_counter() - t0) * 1e3
+            res['launches'] = kernel_launches()
+            evals[tag] = res
+            print(f'train_eval: evaluate_speaker {tag}: n_clips '
+                  f'{res["n_clips"]} pck {res["pck_by_alpha"]} l2 '
+                  f'{res["l2"]:.6f}; {res["wall_ms"]:.1f} ms (host clock, '
+                  f'model build and weight load included); launches '
+                  f'{res["launches"]}', flush=True)
+            require(res['launches'] == {
+                'log_mel': 0, 'log_mel_exact': 0,
+                'gcn_stack': 2 * test_batches, 'gcn_stack_fwd': 0,
+                'gcn_stack_bwd': 0, 'gcn_stack_edge': 0},
+                f'{tag} launches {res["launches"]}: expected K1 x2 a batch')
+            require(res['n_clips'] == 348, f'{tag}: {res["n_clips"]} clips')
+            require(all(np.isfinite(v) for v in res['pck_by_alpha'].values())
+                    and np.isfinite(res['l2']), f'{tag}: non-finite')
+    errs = {}
+    for tag, tol in (('flagship_f32', HARNESS_PCK_TOL),
+                     ('flagship_bf16', HARNESS_BF16_PCK_TOL)):
+        res = evals[tag]
+        errs[tag] = {a: abs(res['pck_by_alpha'][a] - v)
+                     for a, v in golden['pck_by_alpha'].items()}
+        errs[tag]['l2_rel'] = abs(res['l2'] - golden['l2']) / golden['l2']
+        print(f'train_eval: {tag} vs the JAX golden: pck {res["pck_by_alpha"]}'
+              f' vs {golden["pck_by_alpha"]} (tol {tol:g}), l2 '
+              f'{res["l2"]:.6f} vs {golden["l2"]:.6f} (rel '
+              f'{errs[tag]["l2_rel"]:.2e}); manifest npz_pck '
+              f'{manifest["npz_pck"]}', flush=True)
+        require(all(errs[tag][a] <= tol for a in golden['pck_by_alpha']),
+                f'{tag} PCK {res["pck_by_alpha"]} against the golden '
+                f'{golden["pck_by_alpha"]}')
+    require(errs['flagship_f32']['l2_rel'] <= HARNESS_L2_RTOL,
+            f'f32 L2 {evals["flagship_f32"]["l2"]} against {golden["l2"]}')
+    out.update(
+        train=dict(run_s=run_s, launches=launches, g_steps=g_steps,
+                   d_steps=d_steps, epoch_ms=epoch_ms, mfu=mfu,
+                   best_score=history.get('best_score')),
+        checkpoint=dict(mb=ckpt_mb, write_ms=write_ms, restore_ms=restore_ms,
+                        best_gen_ms=best_ms),
+        resume=dict(start_epoch=epochs, bit_equal=True,
+                    launches=resumed_launches, epoch_ms=resumed_ms),
+        evaluate={tag: {k: r[k] for k in ('n_clips', 'pck_by_alpha', 'l2',
+                                          'wall_ms', 'launches')}
+                  for tag, r in evals.items()},
+        golden={k: golden[k] for k in ('n_clips', 'pck_by_alpha', 'l2')},
+        golden_err=errs, manifest_npz_pck=manifest['npz_pck'])
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1667,6 +1922,8 @@ def main() -> int:
     print(json.dumps({'serve': sv, 'device': smi}))
     data = data_phase()
     print(json.dumps({'data': data, 'device': smi}))
+    train_eval = train_eval_phase()
+    print(json.dumps({'train_eval': train_eval, 'device': smi}))
     stack = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='gcn_stack', source='a2m_torch/csrc/gcn_stack.cu',
