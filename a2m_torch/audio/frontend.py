@@ -191,13 +191,32 @@ def fft_tables(spec: MelSpec, exact: bool = False) -> dict:
     return out
 
 
-@functools.lru_cache(maxsize=16)
+#: (spec, device, exact) -> MelTables, the 16 newest
+_mel_tables: dict = {}
+
+
 def mel_tables(spec: MelSpec, device: torch.device | str,
                exact: bool = False) -> mel_kernel.MelTables:
     """The log-mel's tables on ``device``, f32 or (``exact``) float64: the
     kernel's on every device, and on the CPU also the plain version's dense
-    matrices."""
+    matrices.  Built once and kept, except inside a ``torch.export`` trace:
+    tensors made there are fake (the exported program holds them as
+    constants, copied to the device on every call), so an exporter builds
+    the tables before it traces."""
     device = torch.device(device)
+    key = (spec, device, exact)
+    tables = _mel_tables.get(key)
+    if tables is None:
+        tables = _build_mel_tables(spec, device, exact)
+        if not torch.compiler.is_exporting():
+            if len(_mel_tables) >= 16:
+                _mel_tables.pop(next(iter(_mel_tables)))
+            _mel_tables[key] = tables
+    return tables
+
+
+def _build_mel_tables(spec: MelSpec, device: torch.device,
+                      exact: bool) -> mel_kernel.MelTables:
     t = fft_tables(spec, exact)
 
     def put(a):

@@ -15,8 +15,13 @@ signal with ``hop = frame_len`` and no pad (:func:`log_mel_framed`).
 
 :func:`log_mel` launches a kernel for CUDA tensors and runs
 :func:`log_mel_plain`, the direct windowed DFT in the tables' type, for
-CPU tensors, and for nothing else.  What either reads besides the waveform
-is a :class:`MelTables` (built by ``frontend.mel_tables``); K2x's FFT plan,
+CPU tensors, and for nothing else.  It calls the registered torch op
+``a2m_torch::log_mel``, which takes the tables as their tensors: the plain
+version is the op's CPU kernel, the launch its CUDA kernel, and a fake
+kernel gives the output's shape, so ``torch.export`` traces the log-mel as
+one node that runs the CUDA kernel in the exported program.  What either
+reads besides the waveform is a :class:`MelTables` (built by
+``frontend.mel_tables``); K2x's FFT plan,
 twiddle tables and mel schedule are :func:`exact_plan`,
 :func:`exact_twiddles` and :func:`mel_schedule`.
 """
@@ -262,17 +267,8 @@ def check_kernel_shapes(n_fft: int, frame_len: int, n_mels: int) -> None:
                          f'{MAX_MELS}')
 
 
-def log_mel(y: torch.Tensor, tables: MelTables, hop: int, pad: int,
-            n_frames: int, log_const: float, power: float = 2.0,
-            log_mode: str = 'eps') -> torch.Tensor:
-    """(B, N) f32 waveform -> (B, n_frames, n_mels) f32 log-mel.
-
-    ``power`` 2 or 1 (magnitude); ``log_mode`` ``'eps'``
-    (``log(max(mel, log_const))``) or ``'offset'`` (``log(mel +
-    log_const)``).  f32 tables give the fast mode, float64 tables the exact
-    mode.  CUDA tensors launch the kernel (K2 or K2x), CPU tensors run
-    :func:`log_mel_plain` on the tables' dense matrices, in float64 for
-    exact tables."""
+def _check_log_mel_args(y: torch.Tensor, tables: MelTables, power: float,
+                        log_mode: str, exact: bool) -> None:
     if power not in (1.0, 2.0) or log_mode not in ('eps', 'offset'):
         raise ValueError(f'log_mel: power {power} / log_mode {log_mode!r} '
                          f'not in (1, 2) / (eps, offset)')
@@ -285,16 +281,79 @@ def log_mel(y: torch.Tensor, tables: MelTables, hop: int, pad: int,
         raise ValueError('log_mel: an empty waveform')
     if not all(t.device == y.device for t in tables.tensors()):
         raise ValueError('log_mel: tensors on different devices')
-    exact = tables.exact
-    if y.device.type == 'cpu':
-        if tables.dr is None:
-            raise ValueError('log_mel: CPU tables without the dense matrices')
-        out = log_mel_plain(y.double() if exact else y, tables.dr, tables.di,
-                            tables.mel, hop, pad, n_frames, log_const, power,
-                            log_mode)
-        return out.float()
-    if y.device.type != 'cuda':
+    if y.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'log_mel: no kernel for device {y.device}')
+    if exact != tables.exact:
+        raise ValueError(f'log_mel: exact={exact} with '
+                         f'{tables.window.dtype} tables')
+
+
+def _tables(window, twiddle, mel_bins, mel_weights, sched_weights,
+            sched_index, mel_pieces, dr, di, mel, frame_len) -> MelTables:
+    return MelTables(frame_len, window, twiddle, mel_bins, mel_weights,
+                     sched_weights, sched_index, mel_pieces, dr, di, mel)
+
+
+@torch.library.custom_op('a2m_torch::log_mel', mutates_args=(),
+                         device_types='cpu')
+def _log_mel_op(y: torch.Tensor, window: torch.Tensor,
+                twiddle: torch.Tensor, mel_bins: torch.Tensor,
+                mel_weights: torch.Tensor,
+                sched_weights: torch.Tensor | None,
+                sched_index: torch.Tensor | None,
+                mel_pieces: torch.Tensor | None, dr: torch.Tensor | None,
+                di: torch.Tensor | None, mel: torch.Tensor | None,
+                frame_len: int, hop: int, pad: int, n_frames: int,
+                log_const: float, power: float, log_mode: str,
+                exact: bool) -> torch.Tensor:
+    """The op's CPU kernel: :func:`log_mel_plain` on the tables' dense
+    matrices, in float64 for exact tables."""
+    tables = _tables(window, twiddle, mel_bins, mel_weights, sched_weights,
+                     sched_index, mel_pieces, dr, di, mel, frame_len)
+    _check_log_mel_args(y, tables, power, log_mode, exact)
+    if dr is None:
+        raise ValueError('log_mel: CPU tables without the dense matrices')
+    out = log_mel_plain(y.double() if exact else y, dr, di, mel, hop, pad,
+                        n_frames, log_const, power, log_mode)
+    return out.float()
+
+
+@_log_mel_op.register_fake
+def _log_mel_fake(y, window, twiddle, mel_bins, mel_weights, sched_weights,
+                  sched_index, mel_pieces, dr, di, mel, frame_len, hop, pad,
+                  n_frames, log_const, power, log_mode, exact):
+    tables = _tables(window, twiddle, mel_bins, mel_weights, sched_weights,
+                     sched_index, mel_pieces, dr, di, mel, frame_len)
+    _check_log_mel_args(y, tables, power, log_mode, exact)
+    return y.new_empty((y.shape[0], n_frames, mel_bins.shape[0]))
+
+
+def log_mel(y: torch.Tensor, tables: MelTables, hop: int, pad: int,
+            n_frames: int, log_const: float, power: float = 2.0,
+            log_mode: str = 'eps') -> torch.Tensor:
+    """(B, N) f32 waveform -> (B, n_frames, n_mels) f32 log-mel.
+
+    ``power`` 2 or 1 (magnitude); ``log_mode`` ``'eps'``
+    (``log(max(mel, log_const))``) or ``'offset'`` (``log(mel +
+    log_const)``).  f32 tables give the fast mode, float64 tables the exact
+    mode.  CUDA tensors launch the kernel (K2 or K2x), CPU tensors run
+    :func:`log_mel_plain` on the tables' dense matrices, in float64 for
+    exact tables.  Calls the op ``a2m_torch::log_mel``."""
+    t = tables
+    return torch.ops.a2m_torch.log_mel(
+        y, t.window, t.twiddle, t.mel_bins, t.mel_weights, t.sched_weights,
+        t.sched_index, t.mel_pieces, t.dr, t.di, t.mel, t.frame_len, hop,
+        pad, n_frames, log_const, power, log_mode, t.exact)
+
+
+@_log_mel_op.register_kernel('cuda')
+def _log_mel_cuda(y, window, twiddle, mel_bins, mel_weights, sched_weights,
+                  sched_index, mel_pieces, dr, di, mel, frame_len, hop, pad,
+                  n_frames, log_const, power, log_mode, exact):
+    """The op's CUDA kernel: K2's launch, or K2x's for exact tables."""
+    tables = _tables(window, twiddle, mel_bins, mel_weights, sched_weights,
+                     sched_index, mel_pieces, dr, di, mel, frame_len)
+    _check_log_mel_args(y, tables, power, log_mode, exact)
     n_fft, n_mels = tables.n_fft, tables.n_mels
     check_kernel_shapes(n_fft, tables.frame_len, n_mels)
     from a2m_torch import _build

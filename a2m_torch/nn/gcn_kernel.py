@@ -30,7 +30,12 @@ the 5-layer GAT/GraphConv stack with LayerNorm, LeakyReLU and residual on
 the twin of ``_make_trainable`` (``:722-780``).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
-for CPU tensors, and for nothing else.  The plain versions follow the
+for CPU tensors, and for nothing else.  The two gradient-free forwards are
+registered torch ops, ``a2m_torch::gcn_stack`` and
+``a2m_torch::gcn_stack_edge``: the plain version is the op's CPU kernel,
+the launch its CUDA kernel, and a fake kernel gives the output's shape, so
+``torch.export`` traces either one as a single node that runs the CUDA
+kernel in the exported program.  The plain versions follow the
 Pallas kernels step by step (dense masked attention, where the CUDA kernels
 loop over the graph's edges: the same function), with the same bf16
 rounding of matmul operands when ``precise`` is false.  With ``precise``
@@ -378,10 +383,34 @@ def _check_stack_args(what: str, x, params, adjacency, heads: int,
         raise ValueError(f'{what}: tensors on different devices')
     if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'{what}: no kernel for device {x.device}')
-    if x.device.type == 'cuda' and (f % 4 or f > 64
-                                    or params.data_ptr() % 16):
-        raise ValueError(f'{what}: the kernel needs F % 4 == 0, F <= 64 '
-                         'and params aligned to 16 bytes')
+    if x.device.type == 'cuda' and (f % 4 or f > 64):
+        raise ValueError(f'{what}: the kernel needs F % 4 == 0 and F <= 64')
+
+
+def _check_aligned(what: str, params: torch.Tensor) -> None:
+    """The kernels load params as float4: raise unless 16-byte aligned.
+    (Reads the address: called by the CUDA kernels, never under a
+    tracer.)"""
+    if params.data_ptr() % 16:
+        raise ValueError(f'{what}: params must be aligned to 16 bytes')
+
+
+@torch.library.custom_op('a2m_torch::gcn_stack', mutates_args=(),
+                         device_types='cpu')
+def _gcn_stack_op(x: torch.Tensor, params: torch.Tensor,
+                  adjacency: torch.Tensor, heads: int, num_layers: int,
+                  precise: bool) -> torch.Tensor:
+    """The op's CPU kernel: :func:`gcn_stack_plain`."""
+    j, f = x.shape[-2:]
+    _check_stack_args('gcn_stack', x, params, adjacency, heads, num_layers)
+    return gcn_stack_plain(x.reshape(-1, j, f), params, adjacency, heads,
+                           num_layers, precise).reshape(x.shape)
+
+
+@_gcn_stack_op.register_fake
+def _gcn_stack_fake(x, params, adjacency, heads, num_layers, precise):
+    _check_stack_args('gcn_stack', x, params, adjacency, heads, num_layers)
+    return x.new_empty(x.shape)
 
 
 def gcn_stack(x: torch.Tensor, params: torch.Tensor,
@@ -393,15 +422,19 @@ def gcn_stack(x: torch.Tensor, params: torch.Tensor,
     src] without self-loops.  CUDA tensors launch the kernel, on the tensor
     cores with bf16 operands and on the CUDA cores with ``precise`` (both
     deterministic: the same inputs give bit-equal outputs); CPU tensors run
-    :func:`gcn_stack_plain`."""
+    :func:`gcn_stack_plain`.  Calls the op ``a2m_torch::gcn_stack``."""
+    return torch.ops.a2m_torch.gcn_stack(x, params, adjacency, heads,
+                                         num_layers, precise)
+
+
+@_gcn_stack_op.register_kernel('cuda')
+def _gcn_stack_cuda(x, params, adjacency, heads, num_layers, precise):
+    """The op's CUDA kernel: K1's launch."""
     j, f = x.shape[-2:]
     _check_stack_args('gcn_stack', x, params, adjacency, heads, num_layers)
-    xf = x.reshape(-1, j, f)
-    if x.device.type == 'cpu':
-        return gcn_stack_plain(xf, params, adjacency, heads, num_layers,
-                               precise).reshape(x.shape)
+    _check_aligned('gcn_stack', params)
     from a2m_torch import _build
-    xf = _aligned(xf)
+    xf = _aligned(x.reshape(-1, j, f))
     params, adjacency = params.contiguous(), adjacency.contiguous()
     out = torch.empty_like(xf)
     lib = _build.load('gcn_stack')
@@ -687,6 +720,26 @@ def edge_tc_weights(params: torch.Tensor, f: int, heads: int,
     return packed
 
 
+@torch.library.custom_op('a2m_torch::gcn_stack_edge', mutates_args=(),
+                         device_types='cpu')
+def _gcn_stack_edge_op(x: torch.Tensor, params: torch.Tensor,
+                       adjacency: torch.Tensor, heads: int, num_layers: int,
+                       precise: bool) -> torch.Tensor:
+    """The op's CPU kernel: :func:`gcn_stack_edge_plain`."""
+    j, f = x.shape[-2:]
+    _check_stack_args('gcn_stack_edge', x, params, adjacency, heads,
+                      num_layers)
+    return gcn_stack_edge_plain(x.reshape(-1, j, f), params, adjacency,
+                                heads, num_layers, precise).reshape(x.shape)
+
+
+@_gcn_stack_edge_op.register_fake
+def _gcn_stack_edge_fake(x, params, adjacency, heads, num_layers, precise):
+    _check_stack_args('gcn_stack_edge', x, params, adjacency, heads,
+                      num_layers)
+    return x.new_empty(x.shape)
+
+
 def gcn_stack_edge(x: torch.Tensor, params: torch.Tensor,
                    adjacency: torch.Tensor, heads: int, num_layers: int = 5,
                    precise: bool = False) -> torch.Tensor:
@@ -694,16 +747,21 @@ def gcn_stack_edge(x: torch.Tensor, params: torch.Tensor,
     what :func:`gcn_stack` does.  CUDA tensors launch the edge-form kernel,
     on the tensor cores with bf16 operands and on the CUDA cores with
     ``precise`` (deterministic: the same inputs give bit-equal outputs);
-    CPU tensors run :func:`gcn_stack_edge_plain`."""
+    CPU tensors run :func:`gcn_stack_edge_plain`.  Calls the op
+    ``a2m_torch::gcn_stack_edge``."""
+    return torch.ops.a2m_torch.gcn_stack_edge(x, params, adjacency, heads,
+                                              num_layers, precise)
+
+
+@_gcn_stack_edge_op.register_kernel('cuda')
+def _gcn_stack_edge_cuda(x, params, adjacency, heads, num_layers, precise):
+    """The op's CUDA kernel: K5's launch."""
     j, f = x.shape[-2:]
     _check_stack_args('gcn_stack_edge', x, params, adjacency, heads,
                       num_layers)
-    xf = x.reshape(-1, j, f)
-    if x.device.type == 'cpu':
-        return gcn_stack_edge_plain(xf, params, adjacency, heads, num_layers,
-                                    precise).reshape(x.shape)
+    _check_aligned('gcn_stack_edge', params)
     from a2m_torch import _build
-    xf = _aligned(xf)
+    xf = _aligned(x.reshape(-1, j, f))
     params = params.contiguous()
     routing = edge_routing(adjacency)
     n, edges, conv_edges = xf.shape[0], routing['edges'], routing[
@@ -806,6 +864,7 @@ def gcn_stack_fwd(x: torch.Tensor, params: torch.Tensor,
     if x.device.type == 'cpu':
         return gcn_stack_fwd_plain(x, params, adjacency, heads, num_layers,
                                    precise)
+    _check_aligned('gcn_stack_fwd', params)
     from a2m_torch import _build
     n, j, f = x.shape
     x, params, adjacency = (_aligned(x), params.contiguous(),
@@ -870,6 +929,7 @@ def gcn_stack_bwd(x0: torch.Tensor, xs: torch.Tensor, g: torch.Tensor,
     if x0.device.type == 'cpu':
         return gcn_stack_bwd_plain(x0, xs, g, params, adjacency, heads,
                                    num_layers, precise)
+    _check_aligned('gcn_stack_bwd', params)
     from a2m_torch import _build
     x0, xs, g = _aligned(x0), _aligned(xs), _aligned(g)
     params, adjacency = params.contiguous(), adjacency.contiguous()

@@ -98,7 +98,15 @@ class GCNStack(nn.Module):
     def packed_params(self) -> torch.Tensor:
         """This stack's parameters as the kernel's flat buffer, packed once
         and again only after a parameter moved or was written in place
-        (``load_state_dict``, ``.to``, an optimiser step)."""
+        (``load_state_dict``, ``.to``, an optimiser step).
+
+        Under ``torch.export`` the parameters have no address to key on:
+        the last eager pack is traced as a constant of the exported
+        program (``a2m_torch.export`` packs each stack just before it
+        traces), or, where none was made, :func:`gcn_kernel.pack_params`
+        itself."""
+        if torch.compiler.is_exporting():
+            return self._pack() if self._packed is None else self._packed[1]
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._packed is None or self._packed[0] != key:
             # a plain tensor even when first packed under inference_mode

@@ -118,7 +118,23 @@ each fatal on failure:
    committed flagship, f32 GCN operands (PCK at alpha 0.2 and 0.1 within
    2e-3 of the golden, L2 within 1e-3 relative) and bf16 (PCK within 1e-2),
    K1 x2 per batch, and on the short run's ``best_gen.npz`` (finite, 348
-   clips).
+   clips);
+12. export: the committed flagship at full width through
+   ``a2m_torch.export`` (the CLI's route: ``_build_from_checkpoint`` with
+   the ``.npz``'s own pose statistics) into four ``.pt2`` artifacts in a
+   temporary directory, each export's seconds and bytes printed: the pose
+   flavour at B = 1, at B = 2 with bf16 and with f32 GCN operands, and the
+   audio flavour at B = 128; one fresh process that imports ``torch``,
+   ``a2m_torch.nn.gcn_kernel`` and ``a2m_torch.audio.mel_kernel`` and
+   nothing else of the port (asserted there, and every plain version
+   replaced by one that raises) loads and runs each, counts its launches
+   per call (K1 x2, and K2 x1 for the audio flavour) and times it; each
+   output bit-equal to the live model's (``load_generator`` or
+   ``build_pipeline``, then the denormalisation), the B = 2 artifacts
+   against ``flagship_golden.npz`` (1e-4 of max|pose| with f32 operands,
+   1% with bf16), and the artifact's call against the live call in one
+   process (host clock, synchronised, median of 20 after warm-up) at
+   B = 1 pose and B = 128 audio.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -128,6 +144,7 @@ result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1887,6 +1904,263 @@ def train_eval_phase() -> dict:
     return out
 
 
+# Phase 12's fresh process: argv[1] a JSON list of {path, x, y}; loads and
+# runs each artifact with torch and the two kernel modules alone, and
+# prints one JSON line: per artifact its launches in one call and the
+# median ms of 20 synchronised calls, and the port's modules it imported
+ARTIFACT_RUNNER = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+from a2m_torch.audio import mel_kernel
+from a2m_torch.nn import gcn_kernel
+
+
+def plain(*args, **kw):
+    raise AssertionError('a plain version ran')
+
+
+gcn_kernel.gcn_stack_plain = gcn_kernel.gcn_stack_edge_plain = plain
+mel_kernel.log_mel_plain = plain
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = {}
+for run in json.loads(sys.argv[1]):
+    x = torch.from_numpy(np.load(run['x'])).cuda()
+    module = torch.export.load(run['path']).module()
+    with torch.inference_mode():
+        module(x)
+        torch.cuda.synchronize()
+        gcn_kernel.gcn_stack.launches = gcn_kernel.gcn_stack_edge.launches = 0
+        mel_kernel.log_mel.launches = mel_kernel.log_mel.exact_launches = 0
+        y = module(x)
+        torch.cuda.synchronize()
+        launches = dict(gcn_stack=gcn_kernel.gcn_stack.launches,
+                        gcn_stack_edge=gcn_kernel.gcn_stack_edge.launches,
+                        log_mel=mel_kernel.log_mel.launches,
+                        log_mel_exact=mel_kernel.log_mel.exact_launches)
+        np.save(run['y'], y.cpu().numpy())
+        ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            module(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out[run['name']] = dict(launches=launches, ms=statistics.median(ms))
+    del module
+print(json.dumps(dict(runs=out, modules=sorted(
+    m for m in sys.modules
+    if m.split('.')[0] in ('a2m_torch', 'a2m', 'jax')))))
+"""
+
+
+def median_call_ms(fn, x, iters: int = 20) -> tuple[float, float]:
+    """Median host-clock ms of ``fn(x)`` over ``iters`` synchronised
+    calls after two warm-ups, and the median ms until the call returned
+    (the host's work of issuing it, before the synchronisation)."""
+    import statistics
+
+    import torch
+    times, issued = [], []
+    for i in range(iters + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(x)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+            issued.append((t1 - t0) * 1e3)
+    return statistics.median(times), statistics.median(issued)
+
+
+def device_profile(fn, x, calls: int = 5) -> tuple[float, float]:
+    """Device operations (kernels, copies) and device ms per call of
+    ``fn(x)``, by ``torch.profiler`` over ``calls`` calls after one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(x)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(ops) / calls,
+            sum(e.device_time_total for e in ops) / calls / 1e3)
+
+
+def export_phase(smi: str) -> dict:
+    """Phase 12: the flagship exported at full width, each artifact run in
+    a fresh process with the kernel modules alone, held bit-equal to the
+    live model and to the JAX golden, and its call timed against the live
+    call."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from a2m_torch import export as aex
+    from a2m_torch.config import Config, GeneratorConfig
+    from a2m_torch.pipeline import (CLIP_SECONDS, FLAGSHIP_NPZ, SR,
+                                    build_pipeline, load_generator)
+    from a2m_torch.weights import load_generator_npz
+
+    t_phase = time.perf_counter()
+    with np.load(ROOT / 'a2m_torch' / 'testdata' / 'flagship_golden.npz') \
+            as z:
+        golden = {k: z[k] for k in z.files}
+    _, stats = load_generator_npz(FLAGSHIP_NPZ)
+    mean, std = stats['mean'], stats['std']
+    rng = np.random.default_rng(12)
+    n_samples = int(SR * CLIP_SECONDS)
+    inputs = {
+        'pose_b1': rng.standard_normal((1, 64, 128)).astype(np.float32),
+        'pose_b2_bf16': golden['log_mel'], 'pose_b2_f32': golden['log_mel'],
+        'audio_b128': (rng.standard_normal((128, n_samples))
+                       * 0.1).astype(np.float32)}
+    # name -> (flavour, batch, f32 GCN operands)
+    plan = {'pose_b1': ('pose', 1, False), 'pose_b2_bf16': ('pose', 2, False),
+            'pose_b2_f32': ('pose', 2, True),
+            'audio_b128': ('audio', 128, False)}
+    out: dict = dict(artifacts={})
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        runs = []
+        for name, (flavour, batch, precise) in plan.items():
+            cfg = Config(generator=GeneratorConfig(fused_precise=precise))
+            t0 = time.perf_counter()
+            generator, variables, *ckpt_stats = aex._build_from_checkpoint(
+                FLAGSHIP_NPZ, None, ['oliver'], cfg, 'cuda')
+            require(all(np.array_equal(a, b) for a, b in zip(
+                ckpt_stats, (mean, std))), 'the checkpoint\'s stats')
+            export = (aex.export_pose_fn if flavour == 'pose'
+                      else aex.export_audio_to_pose)
+            exported = export(generator, variables, mean, std,
+                              batch_size=batch)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            path = aex.save_artifact(exported, Path(tmp) / f'{name}.pt2')
+            save_s = time.perf_counter() - t0
+            meta = json.loads(Path(f'{path}.meta').read_text())
+            nbytes = path.stat().st_size
+            print(f'export: {name} exported in {export_s:.2f} s, saved in '
+                  f'{save_s:.2f} s, {nbytes} bytes; ops {meta["ops"]}, '
+                  f'inputs {meta["inputs"]}, device {meta["device"]}',
+                  flush=True)
+            want_ops = {'a2m_torch::gcn_stack': 2}
+            if flavour == 'audio':
+                want_ops['a2m_torch::log_mel'] = 1
+            require(meta['ops'] == want_ops, f'{name}: ops {meta["ops"]}')
+            np.save(Path(tmp) / f'{name}_x.npy', inputs[name])
+            runs.append(dict(name=name, path=str(path),
+                             x=str(Path(tmp) / f'{name}_x.npy'),
+                             y=str(Path(tmp) / f'{name}_y.npy')))
+            out['artifacts'][name] = dict(export_s=export_s, save_s=save_s,
+                                          bytes=nbytes, ops=meta['ops'])
+            del generator, exported
+        # ---- a fresh process: torch and the kernel modules alone ---------
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-c', ARTIFACT_RUNNER, json.dumps(runs)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            capture_output=True, text=True, timeout=600)
+        fresh_s = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f'artifact process failed:\n{proc.stderr[-4000:]}')
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        allowed = {'a2m_torch', 'a2m_torch._build', 'a2m_torch.audio',
+                   'a2m_torch.audio.mel_kernel', 'a2m_torch.nn',
+                   'a2m_torch.nn.gcn_kernel'}
+        print(f'export: fresh process {fresh_s:.2f} s (four loads and runs);'
+              f' modules {fresh["modules"]}', flush=True)
+        require(set(fresh['modules']) <= allowed,
+                f'the artifact process imported {fresh["modules"]}')
+        # ---- each artifact against the live model ------------------------
+        mean_t, std_t = (torch.as_tensor(v, device='cuda')
+                         for v in (mean, std))
+        live = {}
+        for precise in (False, True):
+            model = load_generator(config=GeneratorConfig(
+                fused_gcn=True, fused_precise=precise), device='cuda')
+            live[precise] = (
+                lambda x, m=model: aex._denorm(m(x), mean_t, std_t))
+        audio_to_pose = build_pipeline(batch=0)
+        live['audio'] = lambda x: aex._denorm(audio_to_pose(x), mean_t,
+                                              std_t)
+        scale = float(np.abs(golden['pose']).max())
+        for name, (flavour, batch, precise) in plan.items():
+            run = fresh['runs'][name]
+            want = {'gcn_stack': 2, 'gcn_stack_edge': 0,
+                    'log_mel': int(flavour == 'audio'), 'log_mel_exact': 0}
+            got = np.load(Path(tmp) / f'{name}_y.npy')
+            fn = live['audio' if flavour == 'audio' else precise]
+            with torch.inference_mode():
+                ref = fn(torch.from_numpy(inputs[name]).cuda()).cpu().numpy()
+            err = float(np.abs(got - ref).max())
+            rec = out['artifacts'][name]
+            rec.update(launches=run['launches'], fresh_ms=run['ms'],
+                       bit_equal=bool(np.array_equal(got, ref)),
+                       max_abs_err_vs_live=err)
+            line = (f'export: {name} in the fresh process: launches per call '
+                    f'{run["launches"]}, {run["ms"]:.3f} ms a call (median '
+                    f'of 20); vs the live model: bit-equal '
+                    f'{rec["bit_equal"]}, max_abs_err {err:.3e}')
+            if name.startswith('pose_b2'):
+                norm = (got - mean) / std
+                rec['golden_rel_err'] = float(
+                    np.abs(norm - golden['pose']).max()) / scale
+                tol = 1e-4 if precise else 1e-2
+                line += (f'; vs the JAX golden {rec["golden_rel_err"]:.3e} '
+                         f'of max|pose| (tol {tol:g})')
+                require(rec['golden_rel_err'] <= tol,
+                        f'{name} against the golden: {rec["golden_rel_err"]}')
+            print(line, flush=True)
+            require(run['launches'] == want,
+                    f'{name}: launches {run["launches"]}, expected {want}')
+            require(tuple(got.shape) == (batch, 64, 104)
+                    and bool(np.isfinite(got).all()), f'{name}: output')
+            require(rec['bit_equal'], f'{name}: artifact differs from the '
+                    f'live model by {err}')
+        # ---- the artifact's call against the live call, in one process ---
+        timing = {}
+        for name, fn in (('pose_b1', live[False]),
+                         ('audio_b128', live['audio'])):
+            artifact = aex.load_artifact(Path(tmp) / f'{name}.pt2')
+            x = torch.from_numpy(inputs[name]).cuda()
+            with torch.inference_mode():
+                ms, issued = zip(*(median_call_ms(f, x) for f in (
+                    fn, artifact, artifact, fn)))
+                device = [device_profile(f, x) for f in (fn, artifact)]
+            nodes = sum(n.op == 'call_function' for n in torch.export.load(
+                Path(tmp) / f'{name}.pt2').graph.nodes)
+            timing[name] = dict(live_ms=[ms[0], ms[3]],
+                                artifact_ms=[ms[1], ms[2]],
+                                live_issue_ms=[issued[0], issued[3]],
+                                artifact_issue_ms=[issued[1], issued[2]],
+                                graph_ops=nodes,
+                                live_device=dict(zip(('ops', 'ms'),
+                                                     device[0])),
+                                artifact_device=dict(zip(('ops', 'ms'),
+                                                         device[1])))
+            print(f'export: {name} live {ms[0]:.3f} / {ms[3]:.3f} ms, '
+                  f'artifact {ms[1]:.3f} / {ms[2]:.3f} ms a call (host '
+                  f'clock, median of 20, live-artifact-artifact-live); '
+                  f'the host issues a call in {issued[0]:.3f} / '
+                  f'{issued[3]:.3f} ms live, {issued[1]:.3f} / '
+                  f'{issued[2]:.3f} ms the artifact ({nodes} ops in its '
+                  f'graph); device operations and ms a call (profiler) '
+                  f'live {device[0][0]:g}, {device[0][1]:.3f}, artifact '
+                  f'{device[1][0]:g}, {device[1][1]:.3f}; {smi}',
+                  flush=True)
+            del artifact
+    out.update(timing=timing, fresh_process_s=fresh_s,
+               total_s=time.perf_counter() - t_phase)
+    print(f'export: phase {out["total_s"]:.1f} s', flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1924,15 +2198,23 @@ def main() -> int:
     print(json.dumps({'data': data, 'device': smi}))
     train_eval = train_eval_phase()
     print(json.dumps({'train_eval': train_eval, 'device': smi}))
+    exp = export_phase(smi)
+    print(json.dumps({'export': exp, 'device': smi}))
+    artifact_launches = {name: a['launches']
+                         for name, a in exp['artifacts'].items()}
     stack = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='gcn_stack', source='a2m_torch/csrc/gcn_stack.cu',
              replaces='a2m/nn/pallas_gcn.py:228',
-             launches=sl['launches']['gcn_stack'], **stack, **gcn),
+             launches=sl['launches']['gcn_stack'], **stack, **gcn,
+             artifact_launches={k: v['gcn_stack']
+                                for k, v in artifact_launches.items()}),
         dict(name='log_mel', route='cuda',
              source='a2m_torch/csrc/log_mel.cu',
              replaces='a2m/audio/pallas_mel.py:68',
-             launches=sl['launches']['log_mel'], **mel),
+             launches=sl['launches']['log_mel'], **mel,
+             artifact_launches={k: v['log_mel']
+                                for k, v in artifact_launches.items()}),
         dict(name='gcn_stack_fwd', source='a2m_torch/csrc/gcn_stack.cu',
              replaces='a2m/nn/pallas_gcn.py:529',
              launches=tr['launches']['g_step']['gcn_stack_fwd'], **stack,
