@@ -13,10 +13,11 @@ port the device alone picks the log-mel kernel (CUDA) or its plain version
 (CPU).  The knobs that exist only for the TPU (``remat``, ``rng_impl``,
 ``donate_buffers``, ``fused_tile``: each kernel here picks its own tile)
 have no counterpart here, so an override of one raises ``KeyError`` as any
-unknown field does.  ``MeshConfig`` and ``DistConfig`` exist so that a2m's
-override strings parse; :func:`validate` refuses what the port does not
-run yet: more than one device or process, and a ``compute_dtype`` other
-than ``'f32'``.
+unknown field does.  ``DistConfig`` brings up a process group
+(:mod:`a2m_torch.parallel.launch`), one process per card, and ``MeshConfig``
+names its data axis; :func:`validate` refuses what the port does not run
+yet: tensor parallelism (``mesh.model > 1``), one process over several
+devices, and a ``compute_dtype`` other than ``'f32'``.
 """
 
 from __future__ import annotations
@@ -205,8 +206,12 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Devices of a data/model mesh (a2m's GSPMD sharding).  The port trains
-    on one device: :func:`validate` refuses a larger mesh."""
+    """The data/model mesh (a2m's GSPMD sharding).  The port runs one
+    process per card, so its data axis is the process group: ``data`` is 1,
+    -1 (all ranks) or the world size, and the batch is split across the
+    ranks (:mod:`a2m_torch.parallel.mesh`).  :func:`validate` refuses
+    ``model > 1`` (tensor parallelism) and ``data > 1`` in one process
+    (launch that many processes instead); both are ROADMAP A13b."""
     data: int = 1                   # batch (data-parallel) axis; -1 = all
     model: int = 1                  # channel-dim (tensor) axis
     axis_names: tuple[str, str] = ('data', 'model')
@@ -220,12 +225,16 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class DistConfig:
-    """Multi-process bootstrap (a2m's ``jax.distributed``).  The port runs
-    one process: :func:`validate` refuses any of these set."""
+    """Multi-process bootstrap (a2m's ``jax.distributed``) on
+    ``torch.distributed``: :func:`a2m_torch.parallel.launch.maybe_initialize`
+    reads these fields, then ``A2M_COORDINATOR`` / ``A2M_NUM_PROCESSES`` /
+    ``A2M_PROCESS_ID``, then (``auto``) torchrun's variables.
+    :func:`validate` refuses them set in a process that is not in a
+    matching process group."""
     coordinator: str = ''      # 'host:port' of process 0; '' = one process
     num_processes: int = 0     # total process count (0 = from env / auto)
     process_id: int = -1       # this process's id (-1 = from env / auto)
-    auto: bool = False         # infer everything from the runtime
+    auto: bool = False         # torchrun's RANK / WORLD_SIZE / MASTER_*
 
 
 @dataclass(frozen=True)
@@ -249,7 +258,8 @@ def validate(cfg: Config) -> Config:
     """Cross-field checks that would otherwise fail deep inside a step,
     and refusals of what the port does not run yet (each names its ROADMAP
     item).  Entry points (``Trainer.from_config``, ``python -m
-    a2m_torch.train``) call this; returns ``cfg`` unchanged."""
+    a2m_torch.train``) call this after the process group is up (or not);
+    returns ``cfg`` unchanged."""
     if cfg.train.best_metric not in BEST_METRICS:
         raise ValueError(
             f'train.best_metric={cfg.train.best_metric!r} not one of '
@@ -261,17 +271,37 @@ def validate(cfg: Config) -> Config:
         raise ValueError(
             f'train.compute_dtype={cfg.train.compute_dtype!r}: the port '
             f'trains in f32 only (bf16 through autocast is ROADMAP A12c)')
-    import torch
-    data, model = cfg.mesh.resolved_shape(max(1, torch.cuda.device_count()))
-    if data * model > 1:
+    import torch.distributed as dist
+    up = dist.is_available() and dist.is_initialized()
+    rank, world = (dist.get_rank(), dist.get_world_size()) if up else (0, 1)
+    if cfg.mesh.model > 1:
         raise ValueError(
-            f'mesh {data}x{model}: the port trains on one device '
-            f'(multi-device training is ROADMAP A13)')
+            f'mesh.model={cfg.mesh.model}: the port has no tensor '
+            f'parallelism (ROADMAP A13b); it runs data parallel, one '
+            f'process per card')
+    if cfg.mesh.data not in (1, -1, world):
+        if world == 1:
+            raise ValueError(
+                f'mesh.data={cfg.mesh.data} in one process: the port runs '
+                f'one process per card (ROADMAP A13, A13b); launch '
+                f'{cfg.mesh.data} processes (A2M_COORDINATOR / '
+                f'A2M_NUM_PROCESSES / A2M_PROCESS_ID, or torchrun with '
+                f'dist.auto=true)')
+        raise ValueError(
+            f'mesh.data={cfg.mesh.data} in a group of {world} processes: '
+            f'set mesh.data=-1 (or {world}); ROADMAP A13')
     d = cfg.dist
-    if d.coordinator or d.num_processes > 0 or d.auto:
+    if (d.coordinator or d.num_processes > 0 or d.auto) and not up:
         raise ValueError(
-            'dist.*: the port runs one process (multi-process training is '
-            'ROADMAP A13)')
+            'dist.* set but no process group is up: call '
+            'a2m_torch.parallel.launch.maybe_initialize(cfg.dist) first, as '
+            'python -m a2m_torch.train does (ROADMAP A13)')
+    if up and ((d.num_processes > 0 and d.num_processes != world)
+               or (d.process_id >= 0 and d.process_id != rank)):
+        raise ValueError(
+            f'dist.num_processes={d.num_processes} dist.process_id='
+            f'{d.process_id}, but this is rank {rank} of {world} '
+            f'(ROADMAP A13)')
     return cfg
 
 

@@ -286,19 +286,31 @@ def synthetic_loader(speakers=('oliver', 'noah'),
                      seed: int = 0, deterministic: bool = False,
                      splits=('train', 'train', 'dev', 'test'),
                      batch_size: int = 128, window_hop: int = 5,
-                     max_batches: dict | None = None):
+                     max_batches: dict | None = None,
+                     process_index: int | None = None,
+                     process_count: int | None = None):
     """The fixture :func:`make_synthetic_pats` writes with these arguments,
     built in memory and cut into windows as ``DataLoader(speaker=speakers,
-    batch_size=batch_size, window_hop=window_hop, seed=seed)`` reads it
+    batch_size=batch_size, window_hop=window_hop, seed=seed,
+    process_index=process_index, process_count=process_count)`` reads it
     from the files (pose and ``log_mel_512`` at 15 fps, windows of 4.3 s,
     the train split shuffled): an object with ``.train``, ``.dev`` and
     ``.test`` Batchers.  ``max_batches`` caps a split's batches an epoch
-    (``{'train': 4, 'dev': 1}``)."""
+    (``{'train': 4, 'dev': 1}``).
+
+    With ``process_index``/``process_count`` (either -1: this rank / the
+    world size of ``torch.distributed``) each split holds this process's
+    share of the intervals (``parallel.mesh.balanced_host_slices`` by
+    window count) and is cut to the fewest batches of any process, so that
+    every rank runs as many steps (``DataLoader``, ``dataset.py:690-727``);
+    ``max_batches`` then caps that."""
     from types import SimpleNamespace
 
     from a2m_torch.data.dataset import (Batcher, ConcatIntervals,
                                         IntervalData, RandomSampler,
                                         SequentialSampler)
+    from a2m_torch.parallel.mesh import (balanced_host_slices,
+                                         process_identity)
     modalities = ('pose/data', 'audio/log_mel_512')
     rng = np.random.default_rng(seed)
     by_split: dict[str, list] = {'train': [], 'dev': [], 'test': []}
@@ -312,12 +324,25 @@ def synthetic_loader(speakers=('oliver', 'noah'),
                 f'{sp}/{iid}.h5', modalities, (15, 15), 4.3,
                 {m: _Rates for m in modalities}, window_hop=window_hop,
                 style=style, arrays=arrays)))
-    caps = max_batches or {}
+    caps = dict(max_batches or {})
+    sliced = process_index is not None or process_count is not None
+    if sliced:
+        rank, world = process_identity()
+        pi = rank if process_index in (None, -1) else process_index
+        pc = world if process_count in (None, -1) else process_count
     out = {}
     for name, intervals in by_split.items():
         # the loader takes each split's intervals in sorted id order
-        data = ConcatIntervals([d for _, d in sorted(intervals,
-                                                     key=lambda x: x[0])])
+        data = [d for _, d in sorted(intervals, key=lambda x: x[0])]
+        if sliced:
+            weights = [len(d) for d in data]
+            slices = balanced_host_slices(list(range(len(data))), weights,
+                                          pc)
+            fewest = min(-(-sum(weights[i] for i in s) // batch_size)
+                         for s in slices)
+            caps[name] = min(caps.get(name, fewest), fewest)
+            data = [data[i] for i in slices[pi]]
+        data = ConcatIntervals(data)
         sampler = (RandomSampler(len(data), seed=seed) if name == 'train'
                    else SequentialSampler(len(data)))
         out[name] = Batcher(data, batch_size, sampler=sampler,

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from a2m_torch import constants
+from a2m_torch.parallel import mesh
 
 
 def pos_to_motion(pose: torch.Tensor) -> torch.Tensor:
@@ -147,8 +148,19 @@ def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def masked_mean(per_sample: torch.Tensor, mask: torch.Tensor | None
                 ) -> torch.Tensor:
     """Mean over the batch excluding padded rows (mask 0).  per_sample is
-    (B, ...); each sample is first reduced to a scalar mean."""
-    if mask is None:
+    (B, ...); each sample is first reduced to a scalar mean.
+
+    Inside :func:`a2m_torch.parallel.mesh.global_batch` the batch is the
+    global one: this rank's masked sum over the global mask sum, so that
+    the ranks' terms add up to the mean over all ranks' rows (averaging the
+    ranks' own means would weigh a rank's rows by its own mask sum, which
+    differs across ranks whenever a batch is wrap-padded)."""
+    batch = mesh.active()
+    if mask is None and batch is None:
         return per_sample.mean()
     flat = per_sample.reshape(per_sample.shape[0], -1).mean(dim=1)
-    return (flat * mask).sum() / mask.sum().clamp_min(1e-8)
+    if batch is None:
+        return (flat * mask).sum() / mask.sum().clamp_min(1e-8)
+    if mask is None:
+        mask = flat.new_ones(flat.shape[0])
+    return (flat * mask).sum() / batch.mask_sum(mask).clamp_min(1e-8)

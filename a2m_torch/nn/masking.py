@@ -7,6 +7,12 @@ the enclosing :func:`batch_mask` context so that wrap-padded rows of a ragged
 final batch are inert, and moves the running statistics with flax's
 momentum 0.9 towards the batch mean and the **biased** batch variance
 (``torch.nn.BatchNorm`` would take the unbiased one).
+
+Inside :func:`a2m_torch.parallel.mesh.global_batch` the train-mode moments
+are those of the global batch, as in a2m's one global program: each rank
+all-reduces its masked sums Σw·x and Σw, then Σw·(x − mean)², through a
+differentiable all-reduce, so the moments, the running statistics and the
+gradients equal a one-process run on the concatenated batch.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import contextvars
 
 import torch
 from torch import nn
+
+from a2m_torch.parallel import mesh
 
 #: flax's BatchNorm momentum as a2m sets it: the share of the old statistic
 MOMENTUM = 0.9
@@ -60,7 +68,9 @@ class MaskedBatchNorm(nn.Module):
         else:
             axes = tuple(range(x.dim() - 1))
             mask = current_batch_mask()
-            if mask is None:
+            if mesh.active() is not None:
+                mean, var = _global_moments(x, mask, axes)
+            elif mask is None:
                 mean = x.mean(axes)
                 var = ((x - mean) ** 2).mean(axes)
             else:
@@ -75,3 +85,18 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+def _global_moments(x: torch.Tensor, mask, axes: tuple):
+    """The masked two-pass moments over the global batch (all ranks' rows;
+    a missing mask weighs every row 1)."""
+    if mask is None:
+        mask = x.new_ones(x.shape[0])
+    w = mask.to(x.dtype).reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    spatial = x[0].numel() // x.shape[-1]
+    sums = mesh.all_reduce_sum(torch.cat([(x * w).sum(axes),
+                                          (w.sum() * spatial).reshape(1)]))
+    denom = sums[-1]
+    mean = sums[:-1] / denom
+    var = mesh.all_reduce_sum((((x - mean) ** 2) * w).sum(axes)) / denom
+    return mean, var

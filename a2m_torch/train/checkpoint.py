@@ -17,6 +17,10 @@ largest magnitude is below 6e4 (else f32), ``batch_stats`` always in f32
 (GAN-trained BatchNorm variances exceed f16's 65504), and the training
 pose statistics as ``stats/mean`` and ``stats/std`` in f32.  Either package
 reads the other's file.
+
+In a process group every rank enters each save, rank 0 alone writes, and
+all ranks meet at a barrier after it (a2m's ``loop.py:555-622``), so no rank
+reads or outlives a file that is not there yet; every rank restores.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from a2m_torch.parallel import launch, mesh
 from a2m_torch.weights import load_generator_npz, to_jax_variables
 
 _EPOCH_FILE = re.compile(r'^epoch_(\d+)\.pt$')
@@ -64,7 +69,17 @@ class CheckpointManager:
         """Write ``epoch``'s checkpoint (``g_state``/``d_state``: the train
         steps' :class:`~a2m_torch.train.train_step.NetState`), then delete
         all but the newest ``max_to_keep``.  The file appears whole: it is
-        written beside its name and renamed."""
+        written beside its name and renamed.  In a process group rank 0
+        writes and every rank returns after it has."""
+        path = self.path(epoch)
+        if mesh.process_identity()[0] == 0:
+            self._write(path, epoch, g_state, d_state, controller_state,
+                        mean, std, extra)
+        launch.host_barrier(f'a2m_ckpt_epoch_{epoch}')
+        return path
+
+    def _write(self, path: Path, epoch: int, g_state, d_state,
+               controller_state: dict, mean, std, extra) -> None:
         payload = dict(
             epoch=int(epoch),
             g_model=g_state.model.state_dict(),
@@ -76,14 +91,12 @@ class CheckpointManager:
             std=torch.as_tensor(std).detach().cpu(),
             extra=extra or {})
         self.directory.mkdir(parents=True, exist_ok=True)
-        path = self.path(epoch)
         partial = path.with_suffix('.pt.partial')
         torch.save(payload, partial)
         os.replace(partial, path)
         if self.max_to_keep:
             for old in self.epochs()[:-self.max_to_keep]:
                 self.path(old).unlink()
-        return path
 
     def restore(self, g_state=None, d_state=None,
                 epoch: int | None = None) -> dict | None:
@@ -109,9 +122,13 @@ class CheckpointManager:
     def save_best_generator(self, model: nn.Module, mean=None,
                             std=None) -> Path:
         """The best generator in a2m's packed format, with the pose
-        statistics it was trained with."""
-        return save_best_generator_npz(model, self.directory / 'best_gen.npz',
-                                       mean, std)
+        statistics it was trained with (rank 0 writes; every rank returns
+        after it has)."""
+        path = self.directory / 'best_gen.npz'
+        if mesh.process_identity()[0] == 0:
+            save_best_generator_npz(model, path, mean, std)
+        launch.host_barrier('a2m_ckpt_best_gen')
+        return path
 
 
 def save_best_generator_npz(model: nn.Module, out_path, mean=None,

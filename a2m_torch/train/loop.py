@@ -17,6 +17,19 @@ object with ``.train`` and ``.dev``), the trainer takes its batches and,
 when no ``mean``/``std`` are given, the neck-subtracted moments of
 ``.train``.
 
+In a process group (:mod:`a2m_torch.parallel.launch`) the trainer is one
+rank of a data-parallel run, as a2m's trainer is one process of its mesh
+(``loop.py:41-63``, ``:92-198``, ``:555-622``): its steps are
+``parallel.mesh.make_sharded_train_steps`` (global batch, gradients summed
+over the ranks, global metrics), so every rank's controller sees the same
+losses and takes the same branches; ``mean``/``std`` come from the ranks'
+summed moments (``launch.sync_global_moments``); parameters, buffers and
+statistics are broadcast from rank 0 once built, warm-started or resumed;
+the default generator is seeded with ``seed + rank`` (dropout differs
+across ranks, the label noise does not); only rank 0 logs
+(``A2M_DIST_DEBUG`` prefixes every rank's lines instead); every rank
+enters each save, rank 0 writes, and all meet at a barrier after.
+
 Given a ``save_dir``, the trainer keeps its run there as a2m does:
 ``ckpt/epoch_<n>.pt`` every ``save_every_epochs`` epochs
 (:class:`~a2m_torch.train.checkpoint.CheckpointManager`),
@@ -30,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -40,7 +54,9 @@ import torch
 
 from a2m_torch.config import (Config, DiscriminatorConfig, GeneratorConfig,
                               TrainConfig, validate)
-from a2m_torch.data.normalization import get_mean_std_necksub
+from a2m_torch.data.normalization import (finalize_moments_necksub,
+                                          get_moments_necksub)
+from a2m_torch.parallel import launch, mesh
 from a2m_torch.train import checkpoint as ckpt_lib
 from a2m_torch.train.controller import DynamicGANTraining
 from a2m_torch.train.train_step import (init_states, make_train_steps,
@@ -74,6 +90,12 @@ class Trainer:
                  save_dir=None):
         self.cfg = cfg
         self.device = next(g_model.parameters()).device
+        import torch.distributed as dist
+        grouped = dist.is_initialized()
+        self.rank, self.world = mesh.process_identity()
+        self.log = _rank_log(log, self.rank, self.world)
+        if grouped:
+            torch.manual_seed(seed + self.rank)     # dropout, per rank
         #: what the style ids depend on (modules without a ``config`` get
         #: the defaults)
         self.g_config = getattr(g_model, 'config', GeneratorConfig())
@@ -81,18 +103,23 @@ class Trainer:
         self.controller = DynamicGANTraining(cfg.controller)
         self.g_state, self.d_state = init_states(
             g_model, d_model, cfg.controller.g_lr, cfg.controller.d_lr)
+        make_steps = (mesh.make_sharded_train_steps if grouped
+                      else make_train_steps)
         self.g_step, self.d_step, self.eval_step = (
-            steps or make_train_steps(g_model, d_model, cfg))
+            steps or make_steps(g_model, d_model, cfg))
         if loader is not None:
             train_batches, dev_batches = loader.train, loader.dev
             if mean is None and std is None:
-                mean, std = get_mean_std_necksub(loader.train)
+                # each rank's slice; summed to the global statistics
+                mean, std = finalize_moments_necksub(
+                    *launch.sync_global_moments(
+                        *get_moments_necksub(loader.train)))
         self.train_batches, self.dev_batches = train_batches, dev_batches
         self.mean = self._put(torch.zeros(104) if mean is None else mean)
         self.std = self._put(torch.ones(104) if std is None else std)
-        #: label noise; dropout draws from the device's default generator
+        #: label noise (the same stream on every rank); dropout draws from
+        #: the device's default generator
         self.key = torch.Generator(device=self.device).manual_seed(seed)
-        self.log = log
         self.loss_history: dict[str, list] = {
             'train_g': [], 'train_d': [], 'val_g': [], 'val_d': []}
         self.save_dir = None if save_dir is None else Path(save_dir)
@@ -116,6 +143,11 @@ class Trainer:
                 self.loss_history = restored['extra'].get(
                     'loss_history', self.loss_history)
                 self.log(f'resumed from epoch {restored["epoch"]}')
+        # built, warm-started or resumed alike on every rank; rank 0's
+        # values are the run's
+        mesh.broadcast_state([*g_model.state_dict().values(),
+                              *d_model.state_dict().values(), self.mean,
+                              self.std])
 
     @classmethod
     def from_config(cls, cfg: Config, loader, device='cuda', seed: int = 0,
@@ -138,6 +170,8 @@ class Trainer:
         g_cfg = cfg.generator
         if dev.type == 'cuda':
             g_cfg = dataclasses.replace(g_cfg, fused_gcn=True)
+            # every rank builds (or finds) the libraries itself: each
+            # compile writes a file of its own and renames it into place
             from a2m_torch import _build
             _build.build(('gcn_stack', 'gcn_stack_bwd'))
         with torch.random.fork_rng(devices=[]):
@@ -407,12 +441,14 @@ class Trainer:
                 ms=secs * 1e3, flops=flops, samples=len(times[1:] or times),
                 mfu=mfu_lib.mfu(flops, secs, dtype, self.device))
             self.log(mfu_lib.format_mfu_line(name, flops, secs, dtype,
-                                             self.device))
+                                             self.device, self.world))
             line.append(f'{batch / secs:.0f} samples/s ({kind})')
         self.log('throughput: ' + ', '.join(line))
 
     def validate(self) -> dict[str, float]:
-        """Mean of ``eval_step``'s metrics over ``dev_batches``."""
+        """Mean of ``eval_step``'s metrics over ``dev_batches`` (in a
+        process group each batch's metrics are the global batch's, and
+        every rank runs as many batches)."""
         sums: dict[str, float] = {}
         steps = 0
         for batch in self.dev_batches:
@@ -484,10 +520,23 @@ class Trainer:
                     best_val = score
                     self.save_best(epoch, val)
             if epoch % self.cfg.save_every_epochs == 0:
+                # every rank enters; rank 0 writes (CheckpointManager)
                 self.ckpt.save(epoch, self.g_state, self.d_state,
                                self.controller.state_dict(), self.mean,
                                self.std,
                                extra=dict(loss_history=self.loss_history))
-                ckpt_lib.save_loss_history(self.save_dir / 'loss.npy',
-                                           self.loss_history)
+                if self.rank == 0:
+                    ckpt_lib.save_loss_history(self.save_dir / 'loss.npy',
+                                               self.loss_history)
         return self.loss_history
+
+
+def _rank_log(log, rank: int, world: int):
+    """``log`` for rank 0 of a group (and one process); nothing for the
+    other ranks, whose lines would repeat rank 0's.  With ``A2M_DIST_DEBUG``
+    set every rank logs, each line prefixed with its rank and the seconds
+    since the trainer was built."""
+    if world > 1 and os.environ.get('A2M_DIST_DEBUG'):
+        t0 = time.time()
+        return lambda line: log(f'[p{rank} +{time.time() - t0:.1f}s] {line}')
+    return log if rank == 0 else (lambda line: None)

@@ -25,6 +25,15 @@ Semantics kept from a2m:
 
 Label noise draws from the explicit ``torch.Generator`` a step is given;
 dropout draws from the device's default generator, as ``nn.Dropout`` does.
+
+Run inside :func:`a2m_torch.parallel.mesh.global_batch` (as
+``mesh.make_sharded_train_steps`` runs them), the steps take a2m's
+multi-process semantics: BatchNorm moments and losses over the global
+batch, gradients summed over the ranks before clipping (so the norm is the
+global one) and Adam, and the label noise drawn at the global batch's shape
+with each rank taking its own rows, so that every rank's labels are those
+rows of a one-process run's.  Dropout stays per rank (each rank's default
+generator; the trainer seeds it with ``seed + rank``).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from a2m_torch.models import losses as L
 from a2m_torch.models.discriminator import aux_cross_entropy
 from a2m_torch.nn import masking
 from a2m_torch.nn.graph import GCNStack
+from a2m_torch.parallel import mesh
 
 
 @dataclass
@@ -98,9 +108,17 @@ def smooth_labels(generator: torch.Generator | None, batch_size: int,
                   device=None) -> torch.Tensor:
     """Annealed smooth labels sampled on ``device``: ``smooth`` plus
     ``noise_std`` * N(0, 1) from ``generator``, clipped to [0.85, 1] for
-    real and [0, 0.15] for fake labels."""
-    noise = torch.randn(batch_size, out_dim, generator=generator,
-                        device=device)
+    real and [0, 0.15] for fake labels.  Inside
+    :func:`~a2m_torch.parallel.mesh.global_batch` the noise is drawn for
+    the global batch and this rank's ``batch_size`` rows are returned."""
+    batch = mesh.active()
+    if batch is None:
+        noise = torch.randn(batch_size, out_dim, generator=generator,
+                            device=device)
+    else:
+        first, rows = batch.rows(batch_size)
+        noise = torch.randn(rows, out_dim, generator=generator,
+                            device=device)[first:first + batch_size]
     noisy = smooth + noise_std * noise
     return noisy.clamp(0.85, 1.0) if is_real else noisy.clamp(0.0, 0.15)
 
@@ -189,9 +207,10 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
         return audio if use_audio else None
 
     def step_optimizer(state: NetState) -> None:
+        params = list(state.model.parameters())
+        mesh.all_reduce_grads(params)       # the global batch's gradient
         if cfg.grad_clip_norm and cfg.grad_clip_norm > 0:
-            clip_by_global_norm(list(state.model.parameters()),
-                                cfg.grad_clip_norm)
+            clip_by_global_norm(params, cfg.grad_clip_norm)
         state.optimizer.step()
 
     def g_step(g_state: NetState, d_state: NetState, audio, pose, mean, std,

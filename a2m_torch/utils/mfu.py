@@ -11,6 +11,12 @@ recomputes the forward), read off the wrappers' launch counters around the
 call.  On the CPU the stacks run their plain versions, which the counter
 sees, and no launch is added.
 
+In a data-parallel run every number is per rank: a rank's step over its
+own rows of the global batch, timed on its own clock (the collectives
+included), against the peak of one card; the trainer of rank 0 logs the
+line, marked ``per rank of N``.  Ranks that share one card each count the
+whole card's peak.
+
 Peaks are the published dense rates of one card (NVIDIA's H100 SXM data
 sheet: 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 outside
 them); the CPU's 1e11 only keeps the numbers finite in tests.
@@ -118,14 +124,18 @@ def mfu(flops_per_step: float, step_seconds: float, dtype: str = 'f32',
 
 
 def format_mfu_line(name: str, flops_per_step: float, step_seconds: float,
-                    dtype: str = 'f32', device='cuda') -> str:
+                    dtype: str = 'f32', device='cuda', ranks: int = 1) -> str:
+    """The trainer's MFU line; with ``ranks`` > 1 it ends ``per rank of
+    <ranks>`` (the step, its operations and its time are one rank's)."""
     tf = flops_per_step / 1e12
     achieved = flops_per_step / step_seconds / 1e12
     line = (f'{name}: {step_seconds * 1e3:.1f} ms/step, {tf:.2f} TFLOP, '
             f'{achieved:.1f} TFLOP/s achieved, ')
     util = mfu(flops_per_step, step_seconds, dtype, device)
     if util is None:
-        return line + f'MFU not known (no {dtype} peak for ' \
-            f'{device_kind(device)!r})'
-    return line + (f'MFU {100 * util:.1f}% ({device_kind(device)} {dtype} '
-                   f'peak {peak_flops(dtype, device) / 1e12:.3g} TF/s)')
+        line += (f'MFU not known (no {dtype} peak for '
+                 f'{device_kind(device)!r})')
+    else:
+        line += (f'MFU {100 * util:.1f}% ({device_kind(device)} {dtype} '
+                 f'peak {peak_flops(dtype, device) / 1e12:.3g} TF/s)')
+    return line + (f', per rank of {ranks}' if ranks > 1 else '')

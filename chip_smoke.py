@@ -134,7 +134,30 @@ each fatal on failure:
    against ``flagship_golden.npz`` (1e-4 of max|pose| with f32 operands,
    1% with bf16), and the artifact's call against the live call in one
    process (host clock, synchronised, median of 20 after warm-up) at
-   B = 1 pose and B = 128 audio.
+   B = 1 pose and B = 128 audio;
+13. multi-process data-parallel training (``a2m_torch/parallel/``): the
+   det fixture of phase 11 with its dev and test intervals both to
+   validate (each rank needs one of each split), phase 11's overrides with
+   dropout 0 (each rank draws its own dropout masks), 2 epochs of 4
+   batches and 1 dev batch.  One process in this script at B = 128 on
+   both ranks' batches concatenated, with cuDNN's deterministic
+   algorithms; (a) one rank over NCCL in a child process of this script
+   (``--rank-worker``) on the same batches, through
+   ``train.__main__.bootstrap`` and ``run()``: every step's metrics, the
+   loss histories, every parameter, buffer and Adam moment bit-equal to
+   the one process; (b) two ranks over gloo on the one card, B = 64 each,
+   on ``synthetic_loader(process_count=-1)``: a float64 gradient probe
+   first (one sharded ``g_step`` and ``d_step`` at full width against one
+   process on the concatenated 32 rows, 1e-9), then ``run()`` with each
+   rank's own launch counts asserted (K3 and K4 x2 per G step, K1 x2 per D
+   step and per dev batch), the ranks bit-equal (metrics, histories,
+   parameters, buffers, Adam moments), the first G loss within 1e-3 of
+   the one process, rank 0's checkpoints, and a two-rank resume bit-equal
+   to the saved state followed by one more epoch, ranks still bit-equal;
+   per rank the ms per ``g_step`` and ``d_step``, the ms in collectives
+   and in the gradient all-reduce (on every other step, each collective
+   between two synchronisations), and the checkpoint saves.  A rank that
+   fails or outlives 600 s fails the phase.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -2161,6 +2184,529 @@ def export_phase(smi: str) -> dict:
     return out
 
 
+
+# ---- phase 13: multi-process data-parallel training -------------------------
+
+#: phase 13's run: the det fixture with its dev interval and its test
+#: interval both to validate (a rank needs an interval of each split),
+#: B = 64 a rank, 2 epochs of 4 batches and 1 dev batch
+DIST_BATCH, DIST_EPOCHS = 64, 2
+DIST_CAPS = {'train': 4, 'dev': 1}
+DIST_SPLITS = ('train', 'train', 'train', 'dev', 'dev')
+#: phase 11's run with dropout 0 (a rank draws its own dropout masks, which
+#: a one-process run cannot reproduce)
+DIST_OVERRIDES = ['train.best_metric=val_pck', 'train.lambda_pos=1.0',
+                  f'train.n_epochs={DIST_EPOCHS}', 'generator.dropout=0',
+                  'discriminator.dropout=0']
+#: seconds a rank process may take, its start and kernel loads included
+RANK_TIMEOUT_S = 600
+
+
+def dist_fixture(process_index=None, process_count=None):
+    """The det fixture of phase 11 in memory, DIST_SPLITS, a rank's slice
+    (or the whole, without process arguments)."""
+    from a2m_torch.data.synthetic import synthetic_loader
+    recipe = json.loads((ROOT / 'a2m_torch' / 'testdata'
+                         / 'harness_golden.json').read_text())['recipe']
+    return synthetic_loader(
+        **{k: recipe[k] for k in ('speakers', 'intervals_per_speaker',
+                                  'duration_s', 'seed', 'deterministic')},
+        splits=DIST_SPLITS, batch_size=DIST_BATCH,
+        window_hop=recipe['window_hop'], max_batches=DIST_CAPS,
+        process_index=process_index, process_count=process_count)
+
+
+class ZipLoader:
+    """Both ranks' slices as one loader: each batch the concatenation of
+    rank 0's and rank 1's, the global batch of the two-rank run."""
+
+    def __init__(self):
+        self.ranks = [dist_fixture(i, 2) for i in range(2)]
+        self.train = _Zip([r.train for r in self.ranks])
+        self.dev = _Zip([r.dev for r in self.ranks])
+
+
+class _Zip:
+    def __init__(self, parts):
+        self.parts = parts
+
+    def __len__(self):
+        return min(len(p) for p in self.parts)
+
+    def __iter__(self):
+        import numpy as np
+        for batches in zip(*self.parts, strict=True):
+            yield {k: np.concatenate([b[k] for b in batches])
+                   for k in batches[0] if k != 'meta'}
+
+
+def state_digest(trainer) -> dict:
+    """sha1 of every parameter, buffer and Adam moment of both nets."""
+    import hashlib
+    out = {}
+    for prefix, state in (('g', trainer.g_state), ('d', trainer.d_state)):
+        for k, v in state.model.state_dict().items():
+            out[f'{prefix}/{k}'] = hashlib.sha1(
+                v.detach().cpu().numpy().tobytes()).hexdigest()
+        for i, moments in state.optimizer.state_dict()['state'].items():
+            for k, v in moments.items():
+                out[f'{prefix}/adam/{i}/{k}'] = hashlib.sha1(
+                    v.detach().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def instrumented_run(cfg, loader, device, log):
+    """``train.__main__.run`` with every step timed (synchronised host
+    clock), its metrics kept, and the time each step spends in collectives
+    (all of them, and the gradients' all-reduce alone) summed; returns
+    (trainer, steps)."""
+    import torch
+    import torch.distributed as dist
+    from a2m_torch.parallel import mesh
+    from a2m_torch.train.__main__ import run
+    from a2m_torch.train.loop import Trainer
+    steps: list[dict] = []
+    current: dict = {}
+    plain_step, plain_reduce, plain_grads = (Trainer._step, dist.all_reduce,
+                                             mesh.all_reduce_grads)
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            if not current.get('timing'):
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            current[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    def step(self, kind, measuring, fn, *args, **kwargs):
+        # every other step of a kind times its collectives, each between
+        # two synchronisations; the others run undisturbed
+        timing = sum(s['kind'] == kind for s in steps) % 2 == 1
+        current.clear()
+        current.update(collective_ms=0.0, grad_reduce_ms=0.0, timing=timing)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_step(self, kind, measuring, fn, *args, **kwargs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append(dict(kind=kind, ms=ms, first=measuring, **current,
+                          metrics={k: float(v) for k, v in out[-1].items()}))
+        current.clear()
+        return out
+
+    Trainer._step = step
+    dist.all_reduce = timed(plain_reduce, 'collective_ms')
+    mesh.all_reduce_grads = timed(plain_grads, 'grad_reduce_ms')
+    try:
+        trainer = run(cfg, loader, device=device, log=log)
+    finally:
+        Trainer._step = plain_step
+        dist.all_reduce, mesh.all_reduce_grads = plain_reduce, plain_grads
+    return trainer, steps
+
+
+#: the gradient probe's rows a rank, and its tolerance: of each tensor's
+#: max|grad|, of no less than PROBE_FLOOR of the largest tensor's (a bias
+#: ahead of a train-mode BatchNorm has a gradient of rounding only)
+PROBE_BATCH, PROBE_TOL, PROBE_FLOOR = 16, 1e-9, 1e-3
+
+
+def probe_steps(rows: slice, make_steps, device) -> tuple[dict, dict]:
+    """One ``g_step`` and one ``d_step`` of the full-width models (seed 0,
+    dropout 0) in float64, so the eager GCN layers (the kernels take f32),
+    on ``rows`` of a seeded global batch of 2 x PROBE_BATCH (the last row
+    of each half wrap-padded), with optimisers that keep the gradients
+    they are given and do not move the parameters.  Returns (metrics,
+    gradients) by name.  In f32 the rounding of this randomly initialised
+    net's BatchNorms alone moves its gradients by ~1e-2 in relative L2
+    when the batch is summed in another order (the tiny config on the
+    CPU); in float64 by ~1e-13."""
+    import numpy as np
+    import torch
+    from a2m_torch.config import DiscriminatorConfig, GeneratorConfig
+    from a2m_torch.config import TrainConfig
+    from a2m_torch.models.discriminator import Discriminator
+    from a2m_torch.models.generator import Generator
+    from a2m_torch.train.train_step import NetState
+
+    class Recorder(torch.optim.SGD):
+        def step(self, closure=None):
+            self.seen = [p.grad.clone() for group in self.param_groups
+                         for p in group['params']]
+
+    rng = np.random.default_rng(13)
+    n = 2 * PROBE_BATCH
+    audio = rng.standard_normal((n, 64, 128)).astype(np.float32)
+    pose = (rng.standard_normal((n, 64, 104)) * 10 + 300).astype(np.float32)
+    mask = np.ones(n, np.float32)
+    mask[PROBE_BATCH - 1::PROBE_BATCH] = 0
+    f64 = dict(device=device, dtype=torch.float64)
+    put = lambda a: torch.from_numpy(a[rows]).to(**f64)  # noqa: E731
+    args = (put(audio), put(pose), torch.zeros(104, **f64),
+            torch.full((104,), 10.0, **f64))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g = Generator(GeneratorConfig(dropout=0.0)).to(**f64)
+        d = Discriminator(DiscriminatorConfig(dropout=0.0)).to(**f64)
+    states = [NetState(m, Recorder(m.parameters(), lr=0.0)) for m in (g, d)]
+    # the eager GCN layers in d_step too: the kernels take f32
+    g_step, d_step, _ = make_steps(g, d, TrainConfig(fused_gcn_eval=False))
+    key = torch.Generator(device=device)
+    _, _, gm = g_step(*states, *args, 0.95, 0.01, key.manual_seed(1),
+                      mask=put(mask))
+    _, _, dm = d_step(*states, *args, 0.95, 0.05, 0.01, key.manual_seed(2),
+                      mask=put(mask))
+    metrics = {f'{k}': float(v) for k, v in {**gm, **dm}.items()}
+    grads = {f'{prefix}/{k}': grad for prefix, state in zip('gd', states)
+             for (k, _), grad in zip(state.model.named_parameters(),
+                                     state.optimizer.seen, strict=True)}
+    return metrics, grads
+
+
+def grad_probe(rank: int, device) -> dict | None:
+    """Every rank runs the sharded steps on its rows (their BatchNorm
+    moments, losses and gradients through gloo's all-reduce of CUDA
+    tensors); rank 0 then runs the one-process steps on all rows and
+    compares: every gradient within PROBE_TOL, all together in relative
+    L2 and every metric within it too.  A lost cross-rank term or an
+    averaged gradient is off by 1e-2 or more."""
+    import torch
+    from a2m_torch.parallel import launch, mesh
+    from a2m_torch.train.train_step import make_train_steps
+    rows = slice(rank * PROBE_BATCH, (rank + 1) * PROBE_BATCH)
+    metrics, grads = probe_steps(rows, mesh.make_sharded_train_steps, device)
+    out = None
+    if rank == 0:
+        ref_metrics, ref = probe_steps(slice(None), make_train_steps, device)
+        floor = PROBE_FLOOR * max(float(v.abs().max())
+                                  for v in ref.values())
+        worst, name = 0.0, ''
+        num = den = 0.0
+        for k, r in ref.items():
+            err, scale = rel_err(grads[k], r)
+            if err / max(scale, floor) > worst:
+                worst, name = err / max(scale, floor), k
+            num += (grads[k] - r).pow(2).sum().item()
+            den += r.pow(2).sum().item()
+        metric_rel = max(abs(metrics[k] - v) / abs(v)
+                         for k, v in ref_metrics.items())
+        out = dict(worst_tensor=worst, worst_name=name,
+                   rel_l2=(num / den) ** 0.5, metric_rel=metric_rel,
+                   tensors=len(ref))
+    del grads
+    torch.cuda.empty_cache()
+    launch.host_barrier('a2m_grad_probe')
+    return out
+
+
+def rank_worker(spec: dict) -> int:
+    """One rank of phase 13, started by :func:`dist_phase` with
+    ``A2M_COORDINATOR`` / ``A2M_NUM_PROCESSES`` / ``A2M_PROCESS_ID`` set:
+    the bootstrap, ``run()`` on its slice of the fixture (``spec['loader']``
+    'rank') or on the concatenated batches ('zip'), the launch counts of
+    its own kernels, and with ``spec['resume']`` a resume on the same
+    directory, bit-equal, and one more epoch.  Writes its results to
+    ``spec['out']`` as JSON."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from a2m_torch.config import Config, apply_overrides, validate
+    from a2m_torch.parallel import launch
+    from a2m_torch.train import __main__ as train_main
+    from a2m_torch.train import checkpoint as ckpt_lib
+    from a2m_torch.train.loop import Trainer
+
+    lines: list[str] = []
+
+    def log(line: str) -> None:
+        lines.append(line)
+        print(line, flush=True)
+
+    t_start = time.perf_counter()
+    if spec.get('deterministic'):
+        set_deterministic(True)
+    cfg = apply_overrides(Config(), spec['overrides'])
+    cfg, device = train_main.bootstrap(cfg, 'cuda', log=log)
+    cfg = validate(cfg)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    loader = (ZipLoader() if spec['loader'] == 'zip'
+              else dist_fixture(cfg.data.process_index,
+                                cfg.data.process_count))
+    probe = grad_probe(rank, device) if spec.get('probe') else None
+    if probe is not None:
+        log(f'rank {rank}: gradient probe {probe}')
+        require(max(probe['worst_tensor'], probe['rel_l2'],
+                    probe['metric_rel']) <= PROBE_TOL,
+                f'the sharded steps\' gradients against one process: '
+                f'{probe}')
+    saves: list[float] = []
+    plain_save = ckpt_lib.CheckpointManager.save
+
+    def save(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_save(self, *args, **kwargs)
+        saves.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ckpt_lib.CheckpointManager.save = save
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    trainer, steps = instrumented_run(cfg, loader, device, log)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    g_steps = sum(s['kind'] == 'g' for s in steps)
+    d_steps = sum(s['kind'] == 'd' for s in steps)
+    dev = len(loader.dev) * DIST_EPOCHS
+    log(f'rank {rank}: run() {run_s:.2f} s, {g_steps} G steps, {d_steps} '
+        f'D steps, {dev} dev batches, launches {launches}')
+    require(g_steps > 0 and d_steps > 0 and len(loader.dev) == 1,
+            f'rank {rank}: {g_steps} G, {d_steps} D steps, '
+            f'{len(loader.dev)} dev batches')
+    require(launches == {'log_mel': 0, 'log_mel_exact': 0,
+                         'gcn_stack': 2 * (d_steps + dev),
+                         'gcn_stack_fwd': 2 * g_steps,
+                         'gcn_stack_bwd': 2 * g_steps, 'gcn_stack_edge': 0},
+            f'rank {rank}: launches {launches}: expected K3 and K4 x2 per G '
+            f'step, K1 x2 per D step and dev batch')
+    out = dict(rank=rank, world=world, backend=dist.get_backend(),
+               probe=probe,
+               device=str(trainer.device), lines=lines, run_s=run_s,
+               steps=steps, launches=launches, saves_ms=saves,
+               g_history=list(trainer.controller.g_loss_history),
+               d_history=list(trainer.controller.d_loss_history),
+               loss_history=trainer.loss_history,
+               mean=trainer.mean.cpu().tolist(),
+               digest=state_digest(trainer), mfu=trainer.mfu_report,
+               ckpt=sorted(os.listdir(Path(cfg.train.save_dir) / 'ckpt')))
+    if spec.get('resume'):
+        resumed = Trainer.from_config(cfg, loader, device=device, log=log)
+        same = state_digest(resumed) == out['digest']
+        require(resumed.start_epoch == DIST_EPOCHS and same,
+                f'rank {rank}: resumed at epoch {resumed.start_epoch}, '
+                f'bit-equal {same}')
+        del trainer
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        resumed.fit(DIST_EPOCHS + 1)
+        torch.cuda.synchronize()
+        out.update(resumed_epoch_s=time.perf_counter() - t0,
+                   resumed_launches=kernel_launches(),
+                   resumed_digest=state_digest(resumed),
+                   resumed_history=resumed.loss_history)
+        require(out['resumed_launches']['gcn_stack_fwd'] > 0,
+                f'rank {rank}: resumed launches {out["resumed_launches"]}')
+    out['total_s'] = time.perf_counter() - t_start
+    launch.shutdown()
+    Path(spec['out']).write_text(json.dumps(out))
+    return 0
+
+
+def start_ranks(world: int, spec: dict, tmp: Path) -> list[dict]:
+    """``world`` rank processes of this script, each running
+    :func:`rank_worker`; fails unless every one ends with 0 within
+    RANK_TIMEOUT_S.  Returns their results."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        out = tmp / f'rank{rank}_of_{world}.json'
+        env = dict(os.environ, A2M_COORDINATOR=f'127.0.0.1:{port}',
+                   A2M_NUM_PROCESSES=str(world), A2M_PROCESS_ID=str(rank),
+                   PYTHONPATH=str(ROOT))
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), '--rank-worker',
+             json.dumps(dict(spec, out=str(out)))],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out))
+    logs = []
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        for proc, _ in procs:
+            logs.append(proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for rank, ((proc, out), log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            if line.startswith(('[dist]', 'rank ', 'g_step:', 'd_step:',
+                                'throughput:', '[Validation]', 'resumed')):
+                print(f'dist: rank {rank}/{world}: {line}', flush=True)
+        require(proc.returncode == 0 and out.is_file(),
+                f'rank {rank} of {world} failed (exit {proc.returncode}):\n'
+                f'{log[-4000:]}')
+    return [json.loads(out.read_text()) for _, out in procs]
+
+
+def step_summary(steps: list[dict]) -> dict:
+    """Per kind of step, past the steps the MFU line measures: the median
+    ms of the steps that ran undisturbed, and of those that timed their
+    collectives, the median ms in all collectives and in the gradients'
+    all-reduce."""
+    import statistics
+    out = {}
+    for kind in ('g', 'd'):
+        rows = [s for s in steps if s['kind'] == kind and not s['first']]
+        plain = [s['ms'] for s in rows if not s['timing']]
+        timed = [s for s in rows if s['timing']]
+        if plain and timed:
+            out[f'{kind}_step'] = dict(
+                ms=statistics.median(plain), n=len(plain),
+                timed_ms=statistics.median(s['ms'] for s in timed),
+                collective_ms=statistics.median(
+                    s['collective_ms'] for s in timed),
+                grad_reduce_ms=statistics.median(
+                    s['grad_reduce_ms'] for s in timed), n_timed=len(timed))
+    return out
+
+
+def run_difference(a: dict, b: dict) -> dict:
+    """Where two runs' records part: the first step whose metrics differ
+    (and by how much, relative), and how many state tensors differ."""
+    first = next((i for i, (x, y) in enumerate(zip(a['steps'], b['steps']))
+                  if x['metrics'] != y['metrics']), None)
+    rel = None
+    if first is not None:
+        x, y = a['steps'][first]['metrics'], b['steps'][first]['metrics']
+        rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for k in y)
+    return dict(first_step=first, rel=rel, steps=len(a['steps']),
+                tensors=sum(a['digest'][k] != b['digest'].get(k)
+                            for k in a['digest']), of=len(a['digest']))
+
+
+def set_deterministic(on: bool) -> None:
+    """cuDNN's deterministic algorithms and torch's deterministic mode
+    (warning, not raising, where an operation has none)."""
+    import torch
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def one_process(cfg, tmp: Path, tag: str) -> dict:
+    """``run()`` in this process on the concatenated batches; its record."""
+    import torch
+    from a2m_torch.config import apply_overrides
+    cfg = apply_overrides(cfg, [f'train.save_dir={tmp / tag}'])
+    reset_kernel_launches()
+    trainer, steps = instrumented_run(cfg, ZipLoader(), 'cuda',
+                                      lambda line: None)
+    out = dict(steps=steps, digest=state_digest(trainer),
+               launches=kernel_launches(),
+               g_history=list(trainer.controller.g_loss_history),
+               d_history=list(trainer.controller.d_loss_history))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_phase(smi: str) -> dict:
+    """Phase 13: data-parallel training across processes on the card."""
+    import tempfile
+
+    import torch
+    from a2m_torch.config import Config, apply_overrides, validate
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    (ROOT / 'build').mkdir(exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        tmp = Path(tmp)
+        cfg = validate(apply_overrides(Config(), DIST_OVERRIDES))
+        # ---- one process on the concatenated batches -----------------------
+        # cuDNN picks backward algorithms that add with atomics: two runs of
+        # the same training differ from the second step on (on an H100);
+        # its deterministic algorithms make them bit-equal
+        set_deterministic(True)
+        try:
+            single = one_process(cfg, tmp, 'single')
+        finally:
+            set_deterministic(False)
+        single_g = single['steps'][0]['metrics']['g_loss']
+        print(f'dist: one process, B = {2 * DIST_BATCH}, deterministic '
+              f'algorithms: launches {single["launches"]}; '
+              f'{step_summary(single["steps"])} ms (host clock); {smi}',
+              flush=True)
+        # ---- (a) NCCL, one rank, the same batches ---------------------------
+        common = DIST_OVERRIDES + ['mesh.data=-1']
+        (nccl,) = start_ranks(1, dict(
+            loader='zip', deterministic=True, overrides=common + [
+                f'train.save_dir={tmp / "nccl"}']), tmp)
+        differ = run_difference(nccl, single)
+        require(nccl['backend'] == 'nccl', f'backend {nccl["backend"]}')
+        print(f'dist: (a) NCCL, 1 rank on {nccl["device"]}, deterministic '
+              f'algorithms: against one process {differ}; '
+              f'{step_summary(nccl["steps"])} ms; {smi}', flush=True)
+        require(differ['first_step'] is None and differ['tensors'] == 0
+                and (nccl['g_history'], nccl['d_history'])
+                == (single['g_history'], single['d_history']),
+                f'(a) the one-rank NCCL run differs from one process: '
+                f'{differ}')
+        # ---- (b) gloo, two ranks on the one card ---------------------------
+        ranks = start_ranks(2, dict(
+            loader='rank', resume=True, probe=True, overrides=common + [
+                f'train.save_dir={tmp / "gloo"}']), tmp)
+        r0, r1 = ranks
+        require(r0['backend'] == r1['backend'] == 'gloo',
+                f'backends {r0["backend"]}, {r1["backend"]}')
+        for key in ('steps', 'g_history', 'd_history', 'loss_history',
+                    'mean', 'digest', 'resumed_digest', 'resumed_history',
+                    'ckpt'):
+            a, b = r0[key], r1[key]
+            if key == 'steps':
+                a, b = ([s['metrics'] for s in x] for x in (a, b))
+            require(a == b, f'(b) ranks differ in {key}')
+        require(r0['ckpt'] == ['best_gen.npz', 'epoch_0.pt', 'epoch_1.pt'],
+                f'(b) checkpoints {r0["ckpt"]}')
+        first = r0['steps'][0]['metrics']['g_loss']
+        rel = abs(first - single_g) / abs(single_g)
+        require(rel <= 1e-3, f'(b) first G loss {first} vs one process '
+                f'{single_g}')
+        summary = [step_summary(r['steps']) for r in ranks]
+        for r, s in zip(ranks, summary):
+            parts = [f'{k} {v["ms"]:.1f} ms (median of {v["n"]}); of '
+                     f'{v["n_timed"]} that timed their collectives '
+                     f'({v["timed_ms"]:.1f} ms): all collectives '
+                     f'{v["collective_ms"]:.1f} ms, the gradient '
+                     f'all-reduce {v["grad_reduce_ms"]:.1f} ms'
+                     for k, v in s.items()]
+            print(f'dist: (b) gloo rank {r["rank"]}/2 on {r["device"]}: '
+                  f'run() {r["run_s"]:.2f} s; ' + '; '.join(parts)
+                  + f'; checkpoint saves {[round(v, 1) for v in r["saves_ms"]]}'
+                  f' ms; resumed epoch {r["resumed_epoch_s"]:.2f} s (host '
+                  f'clock, synchronised); {smi}', flush=True)
+        print(f'dist: (b) ranks bit-equal (metrics, histories, parameters, '
+              f'buffers, Adam moments, resumed state); first G loss '
+              f'{first:.7f} vs one process {single_g:.7f} (rel {rel:.2e}, '
+              f'tol 1e-3); G history {r0["g_history"]} vs one process '
+              f'{single["g_history"]}; gradient probe {r0["probe"]}; {smi}',
+              flush=True)
+        out.update(
+            single=dict(steps=step_summary(single['steps']), g_loss=single_g,
+                        launches=single['launches']),
+            nccl=dict(bit_equal=True, steps=step_summary(nccl['steps']),
+                      launches=nccl['launches'], run_s=nccl['run_s']),
+            gloo=dict(first_g_rel=rel, probe=r0['probe'], ranks=[dict(
+                rank=r['rank'], device=r['device'], run_s=r['run_s'],
+                launches=r['launches'], saves_ms=r['saves_ms'],
+                resumed_epoch_s=r['resumed_epoch_s'],
+                resumed_launches=r['resumed_launches'], mfu=r['mfu'],
+                steps=s) for r, s in zip(ranks, summary)]))
+    out['total_s'] = time.perf_counter() - t_phase
+    print(f'dist: phase {out["total_s"]:.1f} s', flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2181,6 +2727,10 @@ def main() -> int:
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
+    if '--dist-only' in sys.argv[1:]:
+        # phase 13 alone, for its development; prints no result line
+        print(json.dumps({'dist': dist_phase(smi), 'device': smi}))
+        return 0
 
     gcn = gcn_phase()
     fwd, bwd = gcn_train_phase()
@@ -2200,6 +2750,8 @@ def main() -> int:
     print(json.dumps({'train_eval': train_eval, 'device': smi}))
     exp = export_phase(smi)
     print(json.dumps({'export': exp, 'device': smi}))
+    multi = dist_phase(smi)
+    print(json.dumps({'dist': multi, 'device': smi}))
     artifact_launches = {name: a['launches']
                          for name, a in exp['artifacts'].items()}
     stack = dict(route='cuda', library_ms=None)
@@ -2243,4 +2795,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--rank-worker']:
+        sys.exit(rank_worker(json.loads(sys.argv[2])))
     sys.exit(main())

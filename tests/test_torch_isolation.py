@@ -30,7 +30,7 @@ for name in ('a2m_torch.models.discriminator', 'a2m_torch.models.losses',
              'a2m_torch.data.normalization', 'a2m_torch.data.synthetic',
              'a2m_torch.data.windowing', 'a2m_torch.audio.io',
              'a2m_torch.audio.vad', 'a2m_torch.parallel.mesh',
-             'a2m_torch.device'):
+             'a2m_torch.parallel.launch', 'a2m_torch.device'):
     assert name in sys.modules, name
 from a2m_torch.audio import frontend
 from a2m_torch.eval import streaming
