@@ -155,12 +155,9 @@ def masked_mean(per_sample: torch.Tensor, mask: torch.Tensor | None
     the ranks' terms add up to the mean over all ranks' rows (averaging the
     ranks' own means would weigh a rank's rows by its own mask sum, which
     differs across ranks whenever a batch is wrap-padded)."""
-    batch = mesh.active()
-    if mask is None and batch is None:
+    if mask is None and mesh.active() is None:
         return per_sample.mean()
     flat = per_sample.reshape(per_sample.shape[0], -1).mean(dim=1)
-    if batch is None:
-        return (flat * mask).sum() / mask.sum().clamp_min(1e-8)
     if mask is None:
         mask = flat.new_ones(flat.shape[0])
-    return (flat * mask).sum() / batch.mask_sum(mask).clamp_min(1e-8)
+    return (flat * mask).sum() / mesh.mask_sum(mask).clamp_min(1e-8)

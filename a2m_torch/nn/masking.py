@@ -68,17 +68,11 @@ class MaskedBatchNorm(nn.Module):
         else:
             axes = tuple(range(x.dim() - 1))
             mask = current_batch_mask()
-            if mesh.active() is not None:
-                mean, var = _global_moments(x, mask, axes)
-            elif mask is None:
+            if mask is None and mesh.active() is None:
                 mean = x.mean(axes)
                 var = ((x - mean) ** 2).mean(axes)
             else:
-                w = mask.to(x.dtype).reshape((x.shape[0],)
-                                             + (1,) * (x.dim() - 1))
-                denom = w.sum() * (x[0].numel() // x.shape[-1])
-                mean = (x * w).sum(axes) / denom
-                var = (((x - mean) ** 2) * w).sum(axes) / denom
+                mean, var = _masked_moments(x, mask, axes)
             with torch.no_grad():
                 m = MOMENTUM
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
@@ -87,9 +81,10 @@ class MaskedBatchNorm(nn.Module):
         return y * self.weight + self.bias
 
 
-def _global_moments(x: torch.Tensor, mask, axes: tuple):
-    """The masked two-pass moments over the global batch (all ranks' rows;
-    a missing mask weighs every row 1)."""
+def _masked_moments(x: torch.Tensor, mask, axes: tuple):
+    """The masked two-pass moments over the batch, the global one inside
+    :func:`~a2m_torch.parallel.mesh.global_batch` (all ranks' rows; a
+    missing mask weighs every row 1)."""
     if mask is None:
         mask = x.new_ones(x.shape[0])
     w = mask.to(x.dtype).reshape((x.shape[0],) + (1,) * (x.dim() - 1))

@@ -21,10 +21,14 @@ or through torchrun, whose ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/
 world size``.  The loader gives each process a disjoint, balanced slice of
 the intervals with equal step counts (``data.process_count=-1``).
 
-Backend: NCCL when every rank of a host has a card of its own; gloo on the
-CPU, or when a host has more ranks than cards (NCCL refuses two ranks on
-one device; gloo stages CUDA tensors through the host).  Rank ``i`` of a
-host uses card ``i % cards``.  A second group, always gloo, carries the
+Backend: NCCL when every rank has a card of its own; gloo on the CPU, or
+when two ranks share a card (NCCL refuses two ranks on one device; gloo
+stages CUDA tensors through the host).  Local rank ``i`` uses card
+``i % cards`` of those its process sees.  With ``A2M_*`` the ranks learn
+through rank 0's store which of them share a host (by host name) and
+which card each took (by its UUID), so that a launch over several hosts
+picks NCCL too; torchrun names the local ranks itself and gives every
+process all of its host's cards.  A second group, always gloo, carries the
 host-side exchanges (:func:`host_barrier`, :func:`sync_global_moments`)
 with timeouts of their own, as a2m's coordination service does.
 """
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 
 import numpy as np
 import torch
@@ -55,10 +60,12 @@ def _env_int(name: str, default: int) -> int:
     return int(v) if v else default
 
 
-def _topology(dist_cfg) -> tuple[str, int, int, int, int] | None:
-    """(init_method, world, rank, local rank, local world) from the
-    ``DistConfig`` fields, then ``A2M_*``, then (``auto``) torchrun's
-    variables; None when nothing asks for a process group."""
+def _topology(dist_cfg):
+    """``(addr, port, world, rank, local)`` from the ``DistConfig`` fields,
+    then ``A2M_*``, then (``auto``) torchrun's variables; None when nothing
+    asks for a process group.  ``local`` is torchrun's ``(LOCAL_RANK,
+    LOCAL_WORLD_SIZE)``, or None with ``A2M_*``, which say nothing of
+    hosts."""
     coordinator = (getattr(dist_cfg, 'coordinator', '')
                    or os.environ.get('A2M_COORDINATOR', ''))
     auto = bool(getattr(dist_cfg, 'auto', False))
@@ -75,24 +82,45 @@ def _topology(dist_cfg) -> tuple[str, int, int, int, int] | None:
                 'dist.coordinator set but num_processes/process_id are '
                 'not: pass dist.num_processes=N dist.process_id=I or set '
                 'A2M_NUM_PROCESSES / A2M_PROCESS_ID')
-        init = f'tcp://{coordinator}'
-        # one host unless the launcher says otherwise
-        local_world = _env_int('LOCAL_WORLD_SIZE', world)
-        local_rank = _env_int('LOCAL_RANK', rank % local_world)
-    else:
-        # torchrun: the runtime supplies the topology
-        world = _env_int('WORLD_SIZE', -1)
-        rank = _env_int('RANK', -1)
-        addr, port = (os.environ.get('MASTER_ADDR', ''),
-                      os.environ.get('MASTER_PORT', ''))
-        if world <= 0 or rank < 0 or not addr or not port:
-            raise ValueError(
-                'dist.auto: RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT '
-                'must be set (torchrun sets them)')
-        init = f'tcp://{addr}:{port}'
-        local_world = _env_int('LOCAL_WORLD_SIZE', world)
-        local_rank = _env_int('LOCAL_RANK', rank % local_world)
-    return init, world, rank, local_rank, local_world
+        addr, _, port = coordinator.rpartition(':')
+        return addr, int(port), world, rank, None
+    # torchrun: the runtime supplies the topology
+    world, rank = _env_int('WORLD_SIZE', -1), _env_int('RANK', -1)
+    local = (_env_int('LOCAL_RANK', -1), _env_int('LOCAL_WORLD_SIZE', -1))
+    addr, port = (os.environ.get('MASTER_ADDR', ''),
+                  os.environ.get('MASTER_PORT', ''))
+    if world <= 0 or rank < 0 or min(local) < 0 or not addr or not port:
+        raise ValueError(
+            'dist.auto: RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, '
+            'MASTER_ADDR and MASTER_PORT must be set (torchrun sets them)')
+    return addr, int(port), world, rank, local
+
+
+def _exchange(store, world: int, rank: int, key: str, value: str
+              ) -> list[str]:
+    """Every rank's ``value`` of ``key``, by rank, through ``store``."""
+    store.set(f'a2m/{key}/{rank}', value)
+    return [store.get(f'a2m/{key}/{r}').decode() for r in range(world)]
+
+
+def _place(store, world: int, rank: int, host: str, cards: int, card_id
+           ) -> tuple[int, int, bool]:
+    """(card index, ranks on this host, whether ranks share cards) of
+    ``rank``: every rank's ``host`` is exchanged through ``store``, the
+    rank takes card ``local rank % cards``, where its local rank is its
+    place among the ranks of its host, and then every rank's
+    ``card_id(index)`` is exchanged."""
+    hosts = _exchange(store, world, rank, 'host', host)
+    same = [r for r, h in enumerate(hosts) if h == host]
+    index = same.index(rank) % cards
+    ids = _exchange(store, world, rank, 'card', card_id(index))
+    return index, len(same), len(set(ids)) < world
+
+
+def _card_id(index: int) -> str:
+    """What names card ``index`` of this process across the group."""
+    props = torch.cuda.get_device_properties(index)
+    return f'{socket.gethostname()}/{getattr(props, "uuid", index)}'
 
 
 def maybe_initialize(dist_cfg=None, device='cuda') -> bool:
@@ -101,33 +129,49 @@ def maybe_initialize(dist_cfg=None, device='cuda') -> bool:
     Resolution order: explicit ``DistConfig`` fields, then the
     ``A2M_COORDINATOR`` / ``A2M_NUM_PROCESSES`` / ``A2M_PROCESS_ID`` env
     vars, then (``dist.auto``) torchrun's ``RANK`` / ``WORLD_SIZE`` /
-    ``LOCAL_RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT``.  ``device`` is
-    where the run trains (``'cuda'`` or ``'cpu'``): it picks the backend
-    and, on CUDA, makes this rank's card the current device (see
-    :func:`rank_device`).  Returns True iff a process group is (now)
-    active; a second call returns that without initialising again."""
+    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` / ``MASTER_ADDR`` /
+    ``MASTER_PORT``.  ``device`` is where the run trains (``'cuda'`` or
+    ``'cpu'``): it picks the backend and, on CUDA, makes this rank's card
+    the current device (see :func:`rank_device`).  Returns True iff a
+    process group is (now) active; a second call returns that without
+    initialising again."""
     if dist.is_initialized():
         return True
     topo = _topology(dist_cfg)
     if topo is None:
         return False
-    init, world, rank, local_rank, local_world = topo
+    addr, port, world, rank, local = topo
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
+    if local is None:
+        # rank 0 serves the rendezvous; the ranks learn through it which
+        # of them share a host and a card
+        store = dist.TCPStore(addr, port, world, is_master=rank == 0,
+                              timeout=timeout)
+        rendezvous = dict(store=store)
+    else:
+        store, rendezvous = None, dict(init_method=f'tcp://{addr}:{port}')
     if torch.device(device).type == 'cuda':
         cards = torch.cuda.device_count()
         if cards == 0:
             raise RuntimeError('a2m_torch: CUDA is not available; pass '
                                'device=cpu to run the port on the CPU')
-        backend = 'nccl' if local_world <= cards else 'gloo'
-        index = local_rank % cards
+        if local is None:
+            index, local_world, shared = _place(
+                store, world, rank, socket.gethostname(), cards, _card_id)
+        else:
+            # torchrun gives every process all of its host's cards
+            local_rank, local_world = local
+            index, shared = local_rank % cards, local_world > cards
+        backend = 'gloo' if shared else 'nccl'
         torch.cuda.set_device(index)
         rank_dev = torch.device('cuda', index)
         placement = (f'cuda:{index} of {cards} card(s), {local_world} '
-                     f'rank(s) on this host')
+                     f'rank(s) on this host'
+                     + (', ranks share cards' if shared else ''))
     else:
         backend, rank_dev, placement = 'gloo', torch.device('cpu'), 'cpu'
-    dist.init_process_group(backend, init_method=init, world_size=world,
-                            rank=rank, timeout=timeout)
+    dist.init_process_group(backend, world_size=world, rank=rank,
+                            timeout=timeout, **rendezvous)
     host = (dist.group.WORLD if backend == 'gloo'
             else dist.new_group(backend='gloo', timeout=timeout))
     _STATE.update(backend=backend, device=rank_dev, host_group=host,

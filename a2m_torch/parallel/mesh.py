@@ -5,7 +5,8 @@ The port's own copy of ``balanced_host_slices`` and ``host_interval_slice``
 (``a2m/parallel/mesh.py:145-186``), the process identity they are used
 with (explicit arguments first, then ``torch.distributed``'s rank and world
 size when a process group is initialised, else one process), and the
-counterpart of ``make_sharded_train_steps`` (``:188-227``).
+global batch that stands in for ``make_sharded_train_steps``
+(``:188-227``): the port's own train steps run inside it.
 
 In a2m a multi-process run is one global program over a mesh: the
 BatchNorm moments, the losses and so the gradients are taken over the
@@ -18,8 +19,10 @@ with explicit collectives inside :func:`global_batch`:
   reductions are differentiable (their backward all-reduces too);
 * ``losses.masked_mean`` divides each rank's sum by the global mask sum,
   so the ranks' terms add up to a2m's global loss;
-* the steps all-reduce (sum) the gradients before clipping and Adam, in
-  one flat buffer a model, and return the global sums of their metrics;
+* the steps (:func:`a2m_torch.train.train_step.make_train_steps`, which
+  enter the context whenever a process group is up) all-reduce (sum) the
+  gradients before clipping and Adam, in one flat buffer a model, and
+  return the global sums of their metrics;
 * label noise is drawn at the global batch's shape and each rank takes its
   own rows.
 
@@ -122,9 +125,14 @@ class _GlobalBatch:
 def global_batch():
     """Within the context, the port's batch reductions (train-mode
     ``MaskedBatchNorm``, ``losses.masked_mean``, the label noise, the
-    optimiser's gradients) run over the global batch of all ranks, as
-    a2m's one global program does."""
+    optimiser's gradients, the steps' metrics) run over the global batch of
+    all ranks, as a2m's one global program does.  Without a process group
+    it changes nothing.  The train steps run inside it (used as their
+    decorator)."""
     import torch.distributed as dist
+    if not dist.is_initialized():
+        yield
+        return
     token = _group_var.set(_GlobalBatch(dist.group.WORLD))
     try:
         yield
@@ -135,6 +143,13 @@ def global_batch():
 def active() -> _GlobalBatch | None:
     """The enclosing :func:`global_batch`, or None."""
     return _group_var.get()
+
+
+def mask_sum(mask: torch.Tensor) -> torch.Tensor:
+    """Σ ``mask`` over the batch: the global batch's inside
+    :func:`global_batch` (no gradient), else this process's."""
+    ctx = active()
+    return mask.sum() if ctx is None else ctx.mask_sum(mask)
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
@@ -209,34 +224,15 @@ def broadcast_state(tensors) -> None:
                 offset += n
 
 
-def make_sharded_train_steps(g_model, d_model, train_cfg):
-    """``(g_step, d_step, eval_step)`` of
-    :func:`a2m_torch.train.train_step.make_train_steps`, each run inside
-    :func:`global_batch`, its metrics summed over the ranks: every rank
-    holds the global values, as every process of a2m's mesh run does.
-    Each rank passes its own rows of the global batch (``data.batch_size``
-    rows a rank)."""
-    from a2m_torch.train.train_step import make_train_steps
-    steps = make_train_steps(g_model, d_model, train_cfg)
-
-    def sharded(step):
-        def run(*args, **kwargs):
-            with global_batch():
-                out = step(*args, **kwargs)
-                metrics = out if isinstance(out, dict) else out[-1]
-                summed = _sum_metrics(metrics, active().group)
-            return summed if isinstance(out, dict) else (*out[:-1], summed)
-        run.__name__ = run.__qualname__ = step.__name__
-        return run
-
-    return tuple(sharded(s) for s in steps)
-
-
-def _sum_metrics(metrics: dict, group) -> dict:
-    """The metrics summed over ``group``, in one all-reduce."""
-    import torch.distributed as dist
-    if not metrics:
+def sum_metrics(metrics: dict) -> dict:
+    """``metrics`` (0-dim tensors) summed over the active group in one
+    all-reduce (themselves outside :func:`global_batch`).  Each rank's term
+    of a masked mean is its share of the global mean, so every rank then
+    holds the global values."""
+    ctx = active()
+    if ctx is None or not metrics:
         return metrics
+    import torch.distributed as dist
     values = torch.stack(list(metrics.values()))
-    dist.all_reduce(values, group=group)
+    dist.all_reduce(values, group=ctx.group)
     return dict(zip(metrics, values.unbind()))

@@ -19,9 +19,9 @@ when no ``mean``/``std`` are given, the neck-subtracted moments of
 
 In a process group (:mod:`a2m_torch.parallel.launch`) the trainer is one
 rank of a data-parallel run, as a2m's trainer is one process of its mesh
-(``loop.py:41-63``, ``:92-198``, ``:555-622``): its steps are
-``parallel.mesh.make_sharded_train_steps`` (global batch, gradients summed
-over the ranks, global metrics), so every rank's controller sees the same
+(``loop.py:41-63``, ``:92-198``, ``:555-622``): its steps run over the
+global batch (``parallel.mesh.global_batch``: gradients summed over the
+ranks, global metrics), so every rank's controller sees the same
 losses and takes the same branches; ``mean``/``std`` come from the ranks'
 summed moments (``launch.sync_global_moments``); parameters, buffers and
 statistics are broadcast from rank 0 once built, warm-started or resumed;
@@ -91,10 +91,9 @@ class Trainer:
         self.cfg = cfg
         self.device = next(g_model.parameters()).device
         import torch.distributed as dist
-        grouped = dist.is_initialized()
         self.rank, self.world = mesh.process_identity()
         self.log = _rank_log(log, self.rank, self.world)
-        if grouped:
+        if dist.is_initialized():
             torch.manual_seed(seed + self.rank)     # dropout, per rank
         #: what the style ids depend on (modules without a ``config`` get
         #: the defaults)
@@ -103,10 +102,8 @@ class Trainer:
         self.controller = DynamicGANTraining(cfg.controller)
         self.g_state, self.d_state = init_states(
             g_model, d_model, cfg.controller.g_lr, cfg.controller.d_lr)
-        make_steps = (mesh.make_sharded_train_steps if grouped
-                      else make_train_steps)
         self.g_step, self.d_step, self.eval_step = (
-            steps or make_steps(g_model, d_model, cfg))
+            steps or make_train_steps(g_model, d_model, cfg))
         if loader is not None:
             train_batches, dev_batches = loader.train, loader.dev
             if mean is None and std is None:

@@ -26,11 +26,12 @@ Semantics kept from a2m:
 Label noise draws from the explicit ``torch.Generator`` a step is given;
 dropout draws from the device's default generator, as ``nn.Dropout`` does.
 
-Run inside :func:`a2m_torch.parallel.mesh.global_batch` (as
-``mesh.make_sharded_train_steps`` runs them), the steps take a2m's
-multi-process semantics: BatchNorm moments and losses over the global
+When a process group is up, every step runs inside
+:func:`a2m_torch.parallel.mesh.global_batch` and takes a2m's multi-process
+semantics: BatchNorm moments and losses over the global
 batch, gradients summed over the ranks before clipping (so the norm is the
-global one) and Adam, and the label noise drawn at the global batch's shape
+global one) and Adam, the metrics summed over the ranks (every rank returns
+the global values), and the label noise drawn at the global batch's shape
 with each rank taking its own rows, so that every rank's labels are those
 rows of a one-process run's.  Dropout stays per rank (each rank's default
 generator; the trainer seeds it with ``seed + rank``).
@@ -187,13 +188,17 @@ def _frozen(model: nn.Module):
             p.requires_grad_(True)
 
 
-def _detached(metrics: dict) -> dict:
-    return {k: v.detach() for k, v in metrics.items()}
+def _reported(metrics: dict) -> dict:
+    """The metrics a step returns: detached, and summed over the ranks
+    (the global batch's values)."""
+    return mesh.sum_metrics({k: v.detach() for k, v in metrics.items()})
 
 
 def make_train_steps(g_model: nn.Module, d_model: nn.Module,
                      cfg: TrainConfig):
-    """Build ``(g_step, d_step, eval_step)`` for the two models."""
+    """Build ``(g_step, d_step, eval_step)`` for the two models.  Each
+    rank passes its own rows of the global batch (``data.batch_size`` rows
+    a rank) when a process group is up."""
     fused_eval = cfg.fused_gcn_eval
     if fused_eval is None:
         # the fused forward kernel exists on the card only
@@ -213,6 +218,7 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
             clip_by_global_norm(params, cfg.grad_clip_norm)
         state.optimizer.step()
 
+    @mesh.global_batch()
     def g_step(g_state: NetState, d_state: NetState, audio, pose, mean, std,
                smooth, noise_std, key, style=None, mask=None):
         """One generator update.  Returns ``(g_state, d_state, metrics)``:
@@ -242,8 +248,9 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
         step_optimizer(g_state)
         metrics = dict(g_loss=total, g_gan=g_loss, smooth=kin['smooth'],
                        jerk=kin['jerk'], bone=kin['bone'], angle=kin['angle'])
-        return g_state, d_state, _detached(metrics)
+        return g_state, d_state, _reported(metrics)
 
+    @mesh.global_batch()
     def d_step(g_state: NetState, d_state: NetState, audio, pose, mean, std,
                smooth_r, smooth_f, noise_std, key, style=None, mask=None):
         """One discriminator update.  Returns ``(d_state, g_state,
@@ -276,8 +283,9 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
             metrics = dict(metrics, d_loss=total, d_aux=aux_l)
         total.backward()
         step_optimizer(d_state)
-        return d_state, g_state, _detached(metrics)
+        return d_state, g_state, _reported(metrics)
 
+    @mesh.global_batch()
     def eval_step(g_state: NetState, d_state: NetState, audio, pose, mean,
                   std, mask, style=None) -> dict:
         """Validation pass: eval mode, hard 1/0 labels, masked means, the
@@ -304,9 +312,10 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
             per_clip = ((dist <= radius).float().mean(dim=1)
                         .reshape(b, t).mean(dim=1))
             val_pck = L.masked_mean(per_clip, mask)
-        return dict(val_g=kin['reg'] + cfg.lambda_gan * g_gan, val_d=d_loss,
-                    reg=kin['reg'], pos=kin['pos'], gan=g_gan,
-                    bone=kin['bone'], angle=kin['angle'],
-                    smooth=kin['smooth'], jerk=kin['jerk'], val_pck=val_pck)
+        return mesh.sum_metrics(dict(
+            val_g=kin['reg'] + cfg.lambda_gan * g_gan, val_d=d_loss,
+            reg=kin['reg'], pos=kin['pos'], gan=g_gan, bone=kin['bone'],
+            angle=kin['angle'], smooth=kin['smooth'], jerk=kin['jerk'],
+            val_pck=val_pck))
 
     return g_step, d_step, eval_step

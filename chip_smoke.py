@@ -2315,7 +2315,7 @@ def instrumented_run(cfg, loader, device, log):
 PROBE_BATCH, PROBE_TOL, PROBE_FLOOR = 16, 1e-9, 1e-3
 
 
-def probe_steps(rows: slice, make_steps, device) -> tuple[dict, dict]:
+def probe_steps(rows: slice, device) -> tuple[dict, dict]:
     """One ``g_step`` and one ``d_step`` of the full-width models (seed 0,
     dropout 0) in float64, so the eager GCN layers (the kernels take f32),
     on ``rows`` of a seeded global batch of 2 x PROBE_BATCH (the last row
@@ -2331,7 +2331,7 @@ def probe_steps(rows: slice, make_steps, device) -> tuple[dict, dict]:
     from a2m_torch.config import TrainConfig
     from a2m_torch.models.discriminator import Discriminator
     from a2m_torch.models.generator import Generator
-    from a2m_torch.train.train_step import NetState
+    from a2m_torch.train.train_step import NetState, make_train_steps
 
     class Recorder(torch.optim.SGD):
         def step(self, closure=None):
@@ -2354,7 +2354,8 @@ def probe_steps(rows: slice, make_steps, device) -> tuple[dict, dict]:
         d = Discriminator(DiscriminatorConfig(dropout=0.0)).to(**f64)
     states = [NetState(m, Recorder(m.parameters(), lr=0.0)) for m in (g, d)]
     # the eager GCN layers in d_step too: the kernels take f32
-    g_step, d_step, _ = make_steps(g, d, TrainConfig(fused_gcn_eval=False))
+    g_step, d_step, _ = make_train_steps(g, d,
+                                         TrainConfig(fused_gcn_eval=False))
     key = torch.Generator(device=device)
     _, _, gm = g_step(*states, *args, 0.95, 0.01, key.manual_seed(1),
                       mask=put(mask))
@@ -2367,21 +2368,21 @@ def probe_steps(rows: slice, make_steps, device) -> tuple[dict, dict]:
     return metrics, grads
 
 
-def grad_probe(rank: int, device) -> dict | None:
-    """Every rank runs the sharded steps on its rows (their BatchNorm
-    moments, losses and gradients through gloo's all-reduce of CUDA
-    tensors); rank 0 then runs the one-process steps on all rows and
-    compares: every gradient within PROBE_TOL, all together in relative
-    L2 and every metric within it too.  A lost cross-rank term or an
-    averaged gradient is off by 1e-2 or more."""
+def grad_probe(rank: int, device, reference) -> dict | None:
+    """Every rank runs the train steps on its rows, over the global batch
+    (their BatchNorm moments, losses and gradients through gloo's
+    all-reduce of CUDA tensors); rank 0 compares them with ``reference``,
+    the one-process steps on all rows (:func:`probe_steps` before the group
+    was up): every gradient within PROBE_TOL, all together in relative L2
+    and every metric within it too.  A lost cross-rank term or an averaged
+    gradient is off by 1e-2 or more."""
     import torch
-    from a2m_torch.parallel import launch, mesh
-    from a2m_torch.train.train_step import make_train_steps
+    from a2m_torch.parallel import launch
     rows = slice(rank * PROBE_BATCH, (rank + 1) * PROBE_BATCH)
-    metrics, grads = probe_steps(rows, mesh.make_sharded_train_steps, device)
+    metrics, grads = probe_steps(rows, device)
     out = None
     if rank == 0:
-        ref_metrics, ref = probe_steps(slice(None), make_train_steps, device)
+        ref_metrics, ref = reference
         floor = PROBE_FLOOR * max(float(v.abs().max())
                                   for v in ref.values())
         worst, name = 0.0, ''
@@ -2429,6 +2430,11 @@ def rank_worker(spec: dict) -> int:
     t_start = time.perf_counter()
     if spec.get('deterministic'):
         set_deterministic(True)
+    # the probe's one-process reference, on rank 0 before the group is up
+    # (the others wait for it at the rendezvous)
+    reference = (probe_steps(slice(None), 'cuda')
+                 if spec.get('probe') and os.environ['A2M_PROCESS_ID'] == '0'
+                 else None)
     cfg = apply_overrides(Config(), spec['overrides'])
     cfg, device = train_main.bootstrap(cfg, 'cuda', log=log)
     cfg = validate(cfg)
@@ -2436,7 +2442,9 @@ def rank_worker(spec: dict) -> int:
     loader = (ZipLoader() if spec['loader'] == 'zip'
               else dist_fixture(cfg.data.process_index,
                                 cfg.data.process_count))
-    probe = grad_probe(rank, device) if spec.get('probe') else None
+    probe = (grad_probe(rank, device, reference) if spec.get('probe')
+             else None)
+    del reference
     if probe is not None:
         log(f'rank {rank}: gradient probe {probe}')
         require(max(probe['worst_tensor'], probe['rel_l2'],
@@ -2727,11 +2735,6 @@ def main() -> int:
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
-    if '--dist-only' in sys.argv[1:]:
-        # phase 13 alone, for its development; prints no result line
-        print(json.dumps({'dist': dist_phase(smi), 'device': smi}))
-        return 0
-
     gcn = gcn_phase()
     fwd, bwd = gcn_train_phase()
     mel = log_mel_phase()

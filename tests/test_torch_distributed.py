@@ -124,11 +124,47 @@ def test_host_interval_slice_equals_a2m(index, count):
         intervals, index, count)
 
 
+@pytest.mark.parametrize('hosts,cards,own_card,index,shared', [
+    (['a'] * 8 + ['b'] * 8, 8, False, list(range(8)) * 2, False),
+    (['a'] * 16, 8, False, list(range(8)) * 2, True),
+    (['a', 'a'], 1, False, [0, 0], True),
+    (['a', 'b', 'a', 'b'], 1, True, [0] * 4, False)],
+    ids=['2_hosts_of_8', '16_on_8_cards', '2_on_1_card', '1_card_a_process'])
+def test_ranks_learn_their_host_and_card(hosts, cards, own_card, index,
+                                         shared):
+    """Each rank (a thread here, all on one in-memory store) takes card
+    ``local rank % cards`` of those it sees, and the ranks pick NCCL
+    (nothing shared) over several hosts of ``cards`` cards, or when each
+    process sees one card of its own (``own_card``: the cards' UUIDs
+    differ), and gloo when ranks outnumber a host's cards."""
+    import datetime
+    import threading
+
+    import torch.distributed as dist
+    store = dist.HashStore()
+    store.set_timeout(datetime.timedelta(seconds=30))
+    world, got = len(hosts), {}
+
+    def rank(r):
+        def card_id(i):
+            return f'{hosts[r]}/card{r if own_card else i}'
+        got[r] = launch._place(store, world, r, hosts[r], cards, card_id)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert [got[r][0] for r in range(world)] == index
+    assert {got[r][1] for r in range(world)} == {hosts.count('a')}
+    assert {got[r][2] for r in range(world)} == {shared}
+
+
 def test_one_rank_group(tmp_path, two_threads, no_launch_env):
     """A group of one (gloo, in this process): the bootstrap, ``validate``
-    on ``dist.*`` and ``mesh.*``, the host exchanges, and the sharded steps
-    bit-equal to the plain ones (a sum over one rank is the value itself),
-    then ``shutdown``."""
+    on ``dist.*`` and ``mesh.*``, the host exchanges, and the steps over
+    the global batch bit-equal to the same steps run before the group was
+    up (a sum over one rank is the value itself), then ``shutdown``."""
     import torch.distributed as dist
 
     from a2m_torch.models.discriminator import Discriminator
@@ -138,6 +174,29 @@ def test_one_rank_group(tmp_path, two_threads, no_launch_env):
     dist_args = [f'dist.coordinator=127.0.0.1:{_free_port()}',
                  'dist.num_processes=1', 'dist.process_id=0']
     cfg = apply_overrides(Config(), TINY + dist_args)
+    rng = np.random.default_rng(3)
+    audio = torch.from_numpy(rng.standard_normal((4, 64, 128)).astype(
+        np.float32))
+    pose = torch.from_numpy((rng.standard_normal((4, 64, 104)) * 10
+                             + 300).astype(np.float32))
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0])
+    runs = []
+
+    def run_steps():
+        torch.manual_seed(0)
+        g, d = Generator(cfg.generator), Discriminator(cfg.discriminator)
+        g_state, d_state = init_states(g, d)
+        g_step, d_step, eval_step = make_train_steps(g, d, cfg.train)
+        args = (audio, pose, torch.zeros(104), torch.full((104,), 10.0))
+        _, _, gm = g_step(g_state, d_state, *args, 0.95, 0.01,
+                          torch.Generator().manual_seed(1), mask=mask)
+        _, _, dm = d_step(g_state, d_state, *args, 0.95, 0.05, 0.01,
+                          torch.Generator().manual_seed(2), mask=mask)
+        em = eval_step(g_state, d_state, *args, mask)
+        runs.append((gm, dm, em, [t.clone() for m in (g, d)
+                                  for t in m.state_dict().values()]))
+
+    run_steps()
     lines = []
     try:
         cfg, device = train_main.bootstrap(cfg, 'cpu', log=lines.append)
@@ -159,26 +218,7 @@ def test_one_rank_group(tmp_path, two_threads, no_launch_env):
         assert got[2] == 4
         launch.host_barrier('one_rank')
 
-        rng = np.random.default_rng(3)
-        audio = torch.from_numpy(rng.standard_normal((4, 64, 128)).astype(
-            np.float32))
-        pose = torch.from_numpy((rng.standard_normal((4, 64, 104)) * 10
-                                 + 300).astype(np.float32))
-        mask = torch.tensor([1.0, 1.0, 1.0, 0.0])
-        runs = []
-        for make in (make_train_steps, mesh.make_sharded_train_steps):
-            torch.manual_seed(0)
-            g, d = Generator(cfg.generator), Discriminator(cfg.discriminator)
-            g_state, d_state = init_states(g, d)
-            g_step, d_step, eval_step = make(g, d, cfg.train)
-            args = (audio, pose, torch.zeros(104), torch.full((104,), 10.0))
-            _, _, gm = g_step(g_state, d_state, *args, 0.95, 0.01,
-                              torch.Generator().manual_seed(1), mask=mask)
-            _, _, dm = d_step(g_state, d_state, *args, 0.95, 0.05, 0.01,
-                              torch.Generator().manual_seed(2), mask=mask)
-            em = eval_step(g_state, d_state, *args, mask)
-            runs.append((gm, dm, em, [t.clone() for m in (g, d)
-                                      for t in m.state_dict().values()]))
+        run_steps()
         (gm0, dm0, em0, s0), (gm1, dm1, em1, s1) = runs
         for a, b in ((gm0, gm1), (dm0, dm1), (em0, em1)):
             assert a.keys() == b.keys()
@@ -370,9 +410,8 @@ def test_sharded_steps_equal_one_process_steps(two_ranks, two_threads):
     only), the BatchNorm buffers within 1e-12 of their max.  Measured: 3e-13 of the
     largest at worst; a lost cross-rank term of the BatchNorm moments or an
     averaged gradient is off by 1e-2 or more."""
-    from a2m_torch.train.train_step import make_train_steps
     from torch_parity import assert_grads_close
-    ref = worker.sgd_steps(slice(None), make_train_steps)
+    ref = worker.sgd_steps(slice(None))
     a0, a1 = (r.arrays for r in two_ranks.ranks)
     checked = 0
     for prefix in ('g', 'd'):

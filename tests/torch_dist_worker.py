@@ -8,7 +8,7 @@ in-memory fixture sliced per rank (``synthetic_loader(process_count=-1)``),
 after four cases of the global batch on inputs every rank makes from one
 seed and slices: a train-mode ``MaskedBatchNorm``, ``masked_mean`` with
 unequal mask sums, the label noise, and one ``g_step`` and ``d_step`` of
-the sharded steps.  Writes ``rank<i>.npz`` and
+the train steps over the global batch.  Writes ``rank<i>.npz`` and
 ``rank<i>.json`` into ``out_dir``; the only instrumentation records every
 step's metrics (``Trainer._step``).
 """
@@ -62,7 +62,7 @@ class _Recorder(torch.optim.SGD):
         return super().step(closure)
 
 
-def sgd_steps(rows: slice, make_steps) -> dict:
+def sgd_steps(rows: slice) -> dict:
     """One ``g_step`` then one ``d_step`` of the tiny models (seed 0) on
     ``rows`` of a seeded global batch of 2 x B, in float64 (the f32
     gradients of the first layers of this deep net carry rounding of a few
@@ -74,7 +74,7 @@ def sgd_steps(rows: slice, make_steps) -> dict:
                                   TrainConfig)
     from a2m_torch.models.discriminator import Discriminator
     from a2m_torch.models.generator import Generator
-    from a2m_torch.train.train_step import NetState
+    from a2m_torch.train.train_step import NetState, make_train_steps
     rng = np.random.default_rng(17)
     audio = rng.standard_normal((2 * B, 64, 128)).astype(np.float32)
     pose = (rng.standard_normal((2 * B, 64, 104)) * 10 + 300).astype(
@@ -88,7 +88,7 @@ def sgd_steps(rows: slice, make_steps) -> dict:
         d = Discriminator(DiscriminatorConfig(**TINY_D)).double()
     g_state = NetState(g, _Recorder(g.parameters(), lr=0.0))
     d_state = NetState(d, _Recorder(d.parameters(), lr=0.0))
-    g_step, d_step, _ = make_steps(g, d, TrainConfig())
+    g_step, d_step, _ = make_train_steps(g, d, TrainConfig())
     out = {}
 
     def record(prefix, state, step):
@@ -142,7 +142,7 @@ def unit_cases(rank: int) -> dict:
     with mesh.global_batch():
         out['noise'] = smooth_labels(torch.Generator().manual_seed(5), B, 3,
                                      0.9, 0.05, is_real=True).numpy()
-    out.update(sgd_steps(rows, mesh.make_sharded_train_steps))
+    out.update(sgd_steps(rows))
     return out
 
 
