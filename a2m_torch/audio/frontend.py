@@ -9,7 +9,8 @@ window-folded DFT and mel matrices (``dft_matrices``, ``:91-135``),
 scaling, :func:`log_mel` and :func:`log_mel_frames`, which run the fused
 log-mel kernel (:mod:`a2m_torch.audio.mel_kernel`) on CUDA, the wrappers
 :func:`log_mel_512`, :func:`log_mel_400` and :func:`vggish_log_mel`
-(``:398-411``), and the client-side :func:`frame_for_wire` (numpy).
+(``:398-411``), the client-side :func:`frame_for_wire` (numpy), and the
+energy VAD :func:`silence_mask` (``:420-466``).
 
 As in a2m, ``exact=True`` is the default: within 1e-5 of the float64
 golden (``mel_np``), for feature extraction; the serving paths pass
@@ -332,3 +333,59 @@ def vggish_log_mel(y: torch.Tensor, exact: bool = True) -> torch.Tensor:
     """VGGish 64-bin log-mel of a 16 kHz waveform tensor (reference
     mel_features.py:192-223)."""
     return log_mel(y, spec_vggish(), exact=exact)
+
+
+# ---------------------------------------------------------------------------
+# Silence / VAD (energy-based stand-in for webrtcvad)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _silence_assignment(n_samples: int, fs_old: int, fs_new: int,
+                        frame_ms: int) -> tuple[np.ndarray, int, int]:
+    """Static (n_win, n_sub) row-normalized assignment of 10 ms sub-frames to
+    1/fs_new-second windows, mirroring the reference's float window
+    boundaries (audio.py:138-149)."""
+    sub = fs_old * frame_ms // 1000
+    step = fs_old / fs_new
+    n_ranges = int(np.ceil(n_samples / step))        # np.arange(0, N, step)
+    n_win = n_ranges - 1
+    n_sub = n_samples // sub
+    starts = np.arange(n_win) * step
+    ends = starts + step
+    sub_starts = np.arange(n_sub) * sub
+    # sub-frame s belongs to window w when it fits wholly inside [start, end)
+    a = ((sub_starts[None, :] >= starts[:, None])
+         & (sub_starts[None, :] + sub <= ends[:, None])).astype(np.float32)
+    a /= np.maximum(a.sum(axis=1, keepdims=True), 1.0)
+    return a, n_win, n_sub
+
+
+def silence_mask(y: torch.Tensor, fs_old: int = 16000, fs_new: int = 15,
+                 frame_ms: int = 10, energy_db_floor: float = -40.0
+                 ) -> torch.Tensor:
+    """Silence detection in the reference's output format, on ``y``'s
+    device (a2m's ``frontend.py:441-466``).
+
+    The reference runs webrtcvad over 10 ms sub-frames of float-boundary
+    1/15 s windows, marks a window silent when <=50% of sub-frames contain
+    speech, and appends a literal 0 after every window entry
+    (audio.py:129-172), so the stored `audio/silence` stream has TWO entries
+    per window.  The speech decision here is a vectorized energy VAD (10 ms
+    RMS above ``energy_db_floor`` dB relative to the clip peak).  ``y``:
+    (..., N) float samples.  Returns int32 (..., 2 * n_windows).
+    """
+    a, n_win, n_sub = _silence_assignment(y.shape[-1], fs_old, fs_new,
+                                          frame_ms)
+    sub = fs_old * frame_ms // 1000
+    y = y.float()
+    frames = y[..., :n_sub * sub].reshape(*y.shape[:-1], n_sub, sub)
+    rms = torch.sqrt(torch.mean(frames * frames, dim=-1) + 1e-12)
+    peak = torch.amax(rms, dim=-1, keepdim=True)
+    is_speech = (20.0 * torch.log10(rms / (peak + 1e-12) + 1e-12)
+                 > energy_db_floor).float()
+    frac = is_speech @ torch.from_numpy(a).to(y.device).T   # (..., n_win)
+    silent = (frac <= 0.5).int()
+    # interleave the reference's trailing zero per window
+    out = torch.stack([silent, torch.zeros_like(silent)], dim=-1)
+    return out.reshape(*silent.shape[:-1], 2 * n_win)

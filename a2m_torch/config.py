@@ -178,8 +178,10 @@ class TrainConfig:
     #: resume from the latest checkpoint under ``save_dir`` when there is one
     resume: bool = True
     #: warm-start G (and the pose statistics it carries) from a packed
-    #: best-G ``.npz`` or a directory holding ``best_gen.npz``; optimiser
-    #: state starts fresh.  A ``resume`` restore takes precedence.
+    #: best-G ``.npz`` or a directory holding ``best_gen.npz``, and D from
+    #: ``imported_disc.npz`` in that directory (``python -m
+    #: a2m_torch.compat`` writes both); optimiser state starts fresh.  A
+    #: ``resume`` restore takes precedence.
     init_from: str = ''
     controller: ControllerConfig = field(default_factory=ControllerConfig)
     #: matmul/conv compute dtype; the port runs 'f32' only (``validate``)

@@ -288,7 +288,8 @@ def synthetic_loader(speakers=('oliver', 'noah'),
                      batch_size: int = 128, window_hop: int = 5,
                      max_batches: dict | None = None,
                      process_index: int | None = None,
-                     process_count: int | None = None):
+                     process_count: int | None = None,
+                     style_iters: int = 0):
     """The fixture :func:`make_synthetic_pats` writes with these arguments,
     built in memory and cut into windows as ``DataLoader(speaker=speakers,
     batch_size=batch_size, window_hop=window_hop, seed=seed,
@@ -296,7 +297,9 @@ def synthetic_loader(speakers=('oliver', 'noah'),
     from the files (pose and ``log_mel_512`` at 15 fps, windows of 4.3 s,
     the train split shuffled): an object with ``.train``, ``.dev`` and
     ``.test`` Batchers.  ``max_batches`` caps a split's batches an epoch
-    (``{'train': 4, 'dev': 1}``).
+    (``{'train': 4, 'dev': 1}``).  ``style_iters`` > 0 draws the train
+    windows as ``DataLoader(style_iters=...)`` does: a2m's
+    ``AlternateClassSampler`` over the speakers' blocks.
 
     With ``process_index``/``process_count`` (either -1: this rank / the
     world size of ``torch.distributed``) each split holds this process's
@@ -306,9 +309,9 @@ def synthetic_loader(speakers=('oliver', 'noah'),
     ``max_batches`` then caps that."""
     from types import SimpleNamespace
 
-    from a2m_torch.data.dataset import (Batcher, ConcatIntervals,
-                                        IntervalData, RandomSampler,
-                                        SequentialSampler)
+    from a2m_torch.data.dataset import (AlternateClassSampler, Batcher,
+                                        ConcatIntervals, IntervalData,
+                                        RandomSampler, SequentialSampler)
     from a2m_torch.parallel.mesh import (balanced_host_slices,
                                          process_identity)
     modalities = ('pose/data', 'audio/log_mel_512')
@@ -342,9 +345,18 @@ def synthetic_loader(speakers=('oliver', 'noah'),
                          for s in slices)
             caps[name] = min(caps.get(name, fewest), fewest)
             data = [data[i] for i in slices[pi]]
-        data = ConcatIntervals(data)
-        sampler = (RandomSampler(len(data), seed=seed) if name == 'train'
-                   else SequentialSampler(len(data)))
-        out[name] = Batcher(data, batch_size, sampler=sampler,
+        windows = ConcatIntervals(data)
+        if name == 'train' and style_iters > 0:
+            # windows per speaker block: the intervals are speaker-ordered
+            blocks = [sum(len(d) for d in data if d.style == style)
+                      for style in range(len(speakers))]
+            sampler = AlternateClassSampler(
+                [c for c in blocks if c], style_iters * batch_size,
+                seed=seed)
+        elif name == 'train':
+            sampler = RandomSampler(len(windows), seed=seed)
+        else:
+            sampler = SequentialSampler(len(windows))
+        out[name] = Batcher(windows, batch_size, sampler=sampler,
                             max_batches=caps.get(name))
     return SimpleNamespace(**out)

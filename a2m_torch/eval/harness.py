@@ -45,18 +45,17 @@ def evaluate_speaker(path2data, speaker: str, ckpt=None,
     (seed 0), which a2m's ``PRNGKey(0)`` does not match.  ``alpha`` may be
     a float or a sequence: every alpha is scored in the same pass (``pck``
     is the first's, ``pck_by_alpha`` all).  ``loader`` replaces the
-    ``DataLoader`` over ``path2data``.  ``render_sample_to`` (a sample
-    video) waits for the viz port, ROADMAP A14."""
+    ``DataLoader`` over ``path2data``.  ``render_sample_to``: a directory
+    that receives a sample video of the first test batch
+    (:func:`a2m_torch.viz.generate_video.run`, given this ``loader`` and
+    ``device``), whose file is returned as ``video``."""
     from a2m_torch.models.generator import Generator
     from a2m_torch.train.checkpoint import load_any_generator_ckpt
     from a2m_torch.weights import from_jax_variables
 
-    if render_sample_to is not None:
-        raise NotImplementedError(
-            'render_sample_to: sample videos wait for the viz port '
-            '(ROADMAP A14)')
     cfg = cfg or Config()
     dev = resolve_device(device)
+    given_loader = loader
     if loader is None:
         from a2m_torch.data.dataset import DataLoader
         loader = DataLoader(path2data=path2data, speaker=[speaker],
@@ -110,10 +109,18 @@ def evaluate_speaker(path2data, speaker: str, ckpt=None,
 
     by_alpha = {a: (float(torch.cat(v).mean()) if v else None)
                 for a, v in pcks.items()}
-    return dict(speaker=speaker, n_clips=n_clips, pck=by_alpha[alphas[0]],
-                pck_alpha=alphas[0],
-                pck_by_alpha={str(a): v for a, v in by_alpha.items()},
-                l2=float(torch.stack(l2s).double().mean()) if l2s else None)
+    result = dict(speaker=speaker, n_clips=n_clips, pck=by_alpha[alphas[0]],
+                  pck_alpha=alphas[0],
+                  pck_by_alpha={str(a): v for a, v in by_alpha.items()},
+                  l2=float(torch.stack(l2s).double().mean()) if l2s
+                  else None)
+    if render_sample_to is not None and n_clips:
+        from a2m_torch.viz.generate_video import run as render_run
+        vid = render_run(path2data, speaker, ckpt, render_sample_to,
+                         batch_size=batch_size, cfg=cfg, device=device,
+                         loader=given_loader)
+        result['video'] = vid['video']
+    return result
 
 
 def main(argv=None) -> None:
@@ -123,12 +130,13 @@ def main(argv=None) -> None:
     ap.add_argument('--ckpt', default=None)
     ap.add_argument('--batch_size', type=int, default=128)
     ap.add_argument('--alpha', type=float, nargs='+', default=[0.2])
+    ap.add_argument('--render_to', default=None)
     ap.add_argument('--device', default='cuda')
     args = ap.parse_args(argv)
     alpha = args.alpha[0] if len(args.alpha) == 1 else args.alpha
     print(json.dumps(evaluate_speaker(
         args.path2data, args.speaker, args.ckpt, args.batch_size, alpha,
-        device=args.device)))
+        render_sample_to=args.render_to, device=args.device)))
 
 
 if __name__ == '__main__':

@@ -81,8 +81,9 @@ class Trainer:
     there, and with ``cfg.resume`` restores the latest checkpoint (models,
     optimisers, controller, ``mean``/``std``, loss history; ``start_epoch``
     follows it); without it nothing is written and no best G is selected.
-    ``cfg.init_from`` warm-starts G, and the pose statistics when the file
-    carries them, before a restore, which takes precedence."""
+    ``cfg.init_from`` warm-starts G, the pose statistics when the file
+    carries them, and D when ``imported_disc.npz`` lies beside
+    ``best_gen.npz``, before a restore, which takes precedence."""
 
     def __init__(self, g_model, d_model, cfg: TrainConfig = TrainConfig(),
                  train_batches=(), dev_batches=(), mean=None, std=None,
@@ -179,17 +180,22 @@ class Trainer:
                    log=log, loader=loader, save_dir=cfg.train.save_dir)
 
     def _init_from(self, path) -> None:
-        """Warm-start G from a packed best-G ``.npz`` or a directory that
-        holds ``best_gen.npz``: its weights, and its pose statistics when
-        the file carries them (the model's outputs live in that
-        normalisation).  Optimisers start fresh."""
-        from a2m_torch.weights import from_jax_variables
+        """Warm-start from a packed best-G ``.npz`` or a directory that
+        holds ``best_gen.npz`` and, optionally, ``imported_disc.npz`` (the
+        layout ``python -m a2m_torch.compat`` writes; a2m's
+        ``loop.py:235-270``): G's weights, its pose statistics when the file
+        carries them (the model's outputs live in that normalisation), and
+        D's params and BatchNorm statistics.  Optimisers start fresh (the
+        reference never persisted them, ``version5_model_train.py:509-515``).
+        a2m's Orbax ``imported_disc/`` directory raises."""
+        from a2m_torch.weights import from_jax_variables, load_generator_npz
         p = Path(path)
-        if (p / 'imported_disc').exists():
+        if (p / 'imported_disc').is_dir():
             raise ValueError(
-                f'train.init_from: {p / "imported_disc"} holds a reference '
-                f'discriminator, which the port cannot load until a2m/compat '
-                f'is ported (ROADMAP A14)')
+                f'train.init_from: {p / "imported_disc"} is an Orbax '
+                f'checkpoint, which the port cannot read; migrate the '
+                f'reference discriminator with python -m a2m_torch.compat '
+                f'--disc ..., which writes imported_disc.npz')
         best = ckpt_lib.load_any_generator_ckpt(p)
         if best is None:
             raise FileNotFoundError(
@@ -201,6 +207,12 @@ class Trainer:
             self.mean = self._put(best['mean'])
             self.std = self._put(best['std'])
             loaded += '+stats'
+        d_file = p / 'imported_disc.npz'
+        if d_file.is_file():
+            d_model = self.d_state.model
+            flat, _ = load_generator_npz(d_file)
+            d_model.load_state_dict(from_jax_variables(flat, d_model))
+            loaded += '+D'
         self.log(f'initialized {loaded} from {p}')
 
     def _put(self, t):

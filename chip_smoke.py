@@ -157,15 +157,43 @@ each fatal on failure:
    per rank the ms per ``g_step`` and ``d_step``, the ms in collectives
    and in the gradient all-reduce (on every other step, each collective
    between two synchronisations), and the checkpoint saves.  A rank that
-   fails or outlives 600 s fails the phase.
+   fails or outlives 600 s fails the phase;
+14. a reference checkpoint migrated, evaluated, rendered, fine-tuned, and
+   a2m's benchmark CLI: (a) seeded reference-schema ``state_dict`` files of
+   ``GeneratorConfig()`` and ``DiscriminatorConfig()`` (the schema of
+   ``tests/test_compat.py``, copied here; weights at a trained network's
+   scale) through ``python -m a2m_torch.compat`` in a process of its own
+   (its seconds; both ``.npz`` all f32); the head-permutation markers at
+   full width (zero weights, head biases the semantic channel) through K1
+   with f32 and bf16 operands, every output channel exactly its index; the
+   migrated generator on the card (K1 x2) against the same weights on the
+   CPU's plain path at B = 8, 1e-4 of max|pose| with f32 operands and 1%
+   with bf16; ``train.__main__.run`` with ``train.init_from`` the
+   migration on phase 11's det fixture (1 epoch of 2 batches and 1 dev
+   batch, B = 128): the log line ``initialized G+D``, G and D bit-equal to
+   the files and the optimisers empty when ``fit`` starts, K3 and K4 x2 a
+   G step, G moved; (b) whether matplotlib, PIL and ffmpeg are installed
+   (printed), then ``evaluate_speaker`` on the migrated G over the 348 test
+   clips with ``render_sample_to`` where matplotlib and PIL are (the video
+   written), else without it and ``generate_video.sample_keypoints`` (K1 x2,
+   finite keypoints); (c) ``python -m a2m_torch.eval.benchmarks --configs
+   1,2,3,4,5,6`` in a process of its own, each config's line printed and
+   its launches asserted (1: K2x x1 and K1 x2 a forward; 2: K2 a call; 3:
+   K3 and K4 x2 a ``g_step``, K1 x2 a ``d_step``; 4: K3, K4 and K1 at F = 8,
+   H = 2; 5: K1; 6: K2 and K5; nothing else), config 1's log-mel within
+   1e-5 of float64, config 5's flagship PCK within 1e-2 of
+   ``harness_golden.json`` (bf16 operands).  The phase's seconds and the
+   whole script's are printed.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (each kernel's
+``phase14_launches`` by part of phase 14); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -2715,7 +2743,576 @@ def dist_phase(smi: str) -> dict:
     return out
 
 
+# ---- phase 14: migration, evaluation, rendering, fine-tuning, benchmarks ---
+
+#: the migrated generator on the card against the same weights on the CPU's
+#: plain path, as a share of max|pose|: f32 and bf16 GCN operands
+MIGRATED_F32_TOL, MIGRATED_BF16_TOL = 1e-4, 1e-2
+#: config 1's exact-mode log-mel against float64 (a2m's parity target) and
+#: config 5's flagship PCK against harness_golden.json with bf16 operands
+BENCH_PARITY_TOL, BENCH_FLAGSHIP_PCK_TOL = 1e-5, 1e-2
+#: the fine-tune from the migration: batches of the det fixture
+MIGRATE_CAPS = {'train': 2, 'dev': 1}
+
+
+def _bn_keys(prefix: str, c: int) -> dict:
+    return {f'{prefix}.weight': (c,), f'{prefix}.bias': (c,),
+            f'{prefix}.running_mean': (c,), f'{prefix}.running_var': (c,),
+            f'{prefix}.num_batches_tracked': ()}
+
+
+def _cnr_keys(prefix: str, ci: int, co: int, k) -> dict:
+    """ConvNormRelu keys (model_layers.py:94-105): conv + BatchNorm; ``k``
+    an int (1-D conv) or a (kh, kw) pair (2-D conv)."""
+    kernel = (k,) if isinstance(k, int) else tuple(k)
+    return {f'{prefix}.conv.weight': (co, ci, *kernel),
+            f'{prefix}.conv.bias': (co,), **_bn_keys(f'{prefix}.norm', co)}
+
+
+def _attn_keys(prefix: str, c: int) -> dict:
+    """SelfAttention (model_layers.py:127-131)."""
+    return {f'{prefix}.query_conv.weight': (c // 8, c, 1),
+            f'{prefix}.query_conv.bias': (c // 8,),
+            f'{prefix}.key_conv.weight': (c // 8, c, 1),
+            f'{prefix}.key_conv.bias': (c // 8,),
+            f'{prefix}.value_conv.weight': (c, c, 1),
+            f'{prefix}.value_conv.bias': (c,), f'{prefix}.gamma': (1,)}
+
+
+def _linear_keys(prefix: str, ci: int, co: int) -> dict:
+    return {f'{prefix}.weight': (co, ci), f'{prefix}.bias': (co,)}
+
+
+def _gat_keys(prefix: str, f: int, h: int) -> dict:
+    """torch_geometric >= 2.0 GATConv keys."""
+    return {f'{prefix}.lin.weight': (h * f, f),
+            f'{prefix}.att_src': (1, h, f), f'{prefix}.att_dst': (1, h, f),
+            f'{prefix}.bias': (f,)}
+
+
+def reference_generator_keys(cfg) -> dict:
+    """The reference ``SelfAttention_G`` state_dict schema (key -> shape) at
+    ``cfg``'s sizes (``real_motion_model.py:16-129``,
+    ``model_layers.py:51-374``), the schema ``tests/test_compat.py`` builds;
+    ``up_attention`` sized C*8, as a checkpoint of the fixed model has it."""
+    c, b, u = cfg.out_channels, cfg.in_channels // 4, cfg.in_channels
+    jf, h = cfg.joint_feat_dim, cfg.gat_heads
+    s: dict = {}
+    for i, (ci, co, k) in enumerate([(1, b, (4, 4)), (b, 2 * b, (4, 4)),
+                                     (2 * b, 4 * b, (4, 4)),
+                                     (4 * b, 8 * b, (3, 3)),
+                                     (8 * b, 4 * b, (3, 8))]):
+        s.update(_cnr_keys(f'audio_encoder.conv.{i}', ci, co, k))
+    for i, (ci, co, k) in enumerate([(u, 2 * u, 3), (2 * u, 2 * u, 4),
+                                     (2 * u, 4 * u, 3), (4 * u, 4 * u, 4)]):
+        s.update(_cnr_keys(f'unet.downsample_layers.{i}', ci, co, k))
+    s.update(_cnr_keys('unet.bottleneck', 4 * u, 8 * u, 3))
+    s.update(_attn_keys('unet.bottleneck_attention', 8 * u))
+    for i, (ci, co) in ((0, (8 * u, 4 * u)), (2, (4 * u, 2 * u))):
+        s.update({f'unet.upsample_layers.{i}.conv_transpose.weight':
+                  (ci, co, 3),
+                  f'unet.upsample_layers.{i}.conv_transpose.bias': (co,),
+                  **_bn_keys(f'unet.upsample_layers.{i}.bn', co)})
+    s.update(_cnr_keys('unet.upsample_layers.1', 8 * u, 4 * u, 3))
+    s.update(_cnr_keys('unet.upsample_layers.3', 4 * u, 2 * u, 3))
+    s.update({'unet.final_conv.weight': (c, 2 * u, 1),
+              'unet.final_conv.bias': (c,)})
+    s.update(_attn_keys('unet.up_attention', 8 * u))
+    for part, j in (('body', 10), ('hand', 42)):
+        for stage in ('pre', 'post'):
+            t = f'{part}_decoder_{stage}'
+            s.update(_cnr_keys(f'{t}.0.conv1', c, c, 3))
+            s.update(_cnr_keys(f'{t}.0.conv2', c, c, 3))
+            s.update(_attn_keys(f'{t}.0.attention', c))
+            s.update(_cnr_keys(f'{t}.1', c, c, 3))
+        chattn = [f'{part}_decoder_pre.{2 if part == "body" else 3}']
+        attn = [f'{part}_decoder_pre.{3 if part == "body" else 2}',
+                f'{part}_decoder_post.2']
+        if part == 'hand':
+            chattn.append('hand_decoder_post.3')
+        for t in chattn:
+            s.update({f'{t}.fc.0.weight': (c // 8, c),
+                      f'{t}.fc.0.bias': (c // 8,),
+                      f'{t}.fc.2.weight': (c, c // 8), f'{t}.fc.2.bias': (c,)})
+        for t in attn:
+            s.update(_attn_keys(t, c))
+        s.update(_linear_keys(f'{part}_proj_in', c, j * jf))
+        for i in (1, 3, 5):
+            s.update(_gat_keys(f'{part}_gcn{i}', jf, h))
+        for i in (2, 4):
+            s.update({f'{part}_gcn{i}.lin_rel.weight': (jf, jf),
+                      f'{part}_gcn{i}.lin_rel.bias': (jf,),
+                      f'{part}_gcn{i}.lin_root.weight': (jf, jf)})
+        for i in range(5):
+            s.update({f'{part}_layer_norms.{i}.weight': (jf,),
+                      f'{part}_layer_norms.{i}.bias': (jf,)})
+        s.update(_linear_keys(f'{part}_proj_out', j * jf, c))
+        s.update({f'{part}_norm.weight': (c,), f'{part}_norm.bias': (c,)})
+    s.update({'body_logits.weight': (20, c, 1), 'body_logits.bias': (20,),
+              'hand_logits.weight': (84, c, 1), 'hand_logits.bias': (84,)})
+    return s
+
+
+def reference_discriminator_keys(cfg) -> dict:
+    """The reference ``SelfAttention_D`` schema (real_motion_model.py:
+    504-578) at ``cfg``'s sizes, audio-fusion and aux tensors included."""
+    oc, jf, h = cfg.out_channels, cfg.joint_feat_dim, cfg.gat_heads
+    s: dict = {}
+
+    def conv_bn(conv: str, bn: str, ci: int, co: int, k: int) -> None:
+        s.update({f'{conv}.weight': (co, ci, k), f'{conv}.bias': (co,),
+                  **_bn_keys(bn, co)})
+
+    conv_bn('conv1.0', 'conv1.1', 104, oc, 4)
+    conv_bn('conv1.4', 'conv1.5', oc, oc, 4)
+    cur = oc
+    for n in range(1, cfg.n_downsampling + 1):
+        mul = min(2 ** n, 16)
+        conv_bn(f'conv2.{n - 1}.0', f'conv2.{n - 1}.1', cur, cur * mul, 4)
+        conv_bn(f'conv2.{n - 1}.4', f'conv2.{n - 1}.5', cur * mul, cur * mul,
+                4)
+        cur *= mul
+    conv_bn('conv3.0', 'conv3.1', cur, cur * 2, 4)
+    conv_bn('conv3.4', 'conv3.5', cur * 2, cur * 4, 4)
+    s.update(_attn_keys('conv3.8', cur * 4))
+    conv_bn('conv3.9', 'conv3.10', cur * 4, cur * 4, 3)
+    s.update(_linear_keys('body_proj', cur * 2, 10 * jf))
+    s.update(_linear_keys('hand_proj', cur * 2, 42 * jf))
+    s.update(_gat_keys('body_gat', jf, h))
+    s.update(_gat_keys('hand_gat', jf, h))
+    s.update(_linear_keys('body_graph_out', 10 * jf, cur * 2))
+    s.update(_linear_keys('hand_graph_out', 42 * jf, cur * 2))
+    s.update({'audio_fusion.weight': (cur * 4, 256, 1),
+              'audio_fusion.bias': (cur * 4,),
+              'logits.weight': (1, cur * 8, 3), 'logits.bias': (1,)})
+    s.update(_linear_keys('aux_classifier.0', cur * 4, 512))
+    s.update(_linear_keys('aux_classifier.3', 512, 10))
+    return s
+
+
+def seeded_state_dict(shapes: dict, rng) -> dict:
+    """Reference tensors of a trained network's scale from ``rng``: weights
+    ~ N(0, 1/fan_in), GAT attention ~ N(0, 1/F), norm scales ~ 1 + 0.1 N,
+    attention gates ~ 0.5 + 0.1 N, running variances ~ U(0.5, 1.5), the
+    rest ~ 0.1 N; ``num_batches_tracked`` an int64 count."""
+    import numpy as np
+    import torch
+    out = {}
+    for key, shape in shapes.items():
+        leaf = key.rsplit('.', 1)[1]
+        if leaf == 'num_batches_tracked':
+            out[key] = torch.tensor(1000, dtype=torch.int64)
+            continue
+        if leaf == 'weight' and len(shape) >= 2:
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif leaf in ('att_src', 'att_dst'):
+            v = rng.standard_normal(shape) / np.sqrt(shape[-1])
+        elif leaf == 'weight':
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif leaf == 'gamma':
+            v = 0.5 + 0.1 * rng.standard_normal(shape)
+        elif leaf == 'running_var':
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            v = 0.1 * rng.standard_normal(shape)
+        out[key] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+def _have(module: str) -> bool:
+    import importlib.util
+    return importlib.util.find_spec(module) is not None
+
+
+def migration_check(tmp: Path, g_cfg, d_cfg) -> tuple[Path, dict]:
+    """Phase 14 (a): seeded reference files through ``python -m
+    a2m_torch.compat`` at full width, the head markers through K1, and the
+    migrated generator on the card against the CPU's plain path."""
+    import numpy as np
+    import torch
+    from a2m_torch.compat import import_generator
+    from a2m_torch.models.generator import Generator
+    from a2m_torch.weights import from_jax_variables, load_generator_npz
+
+    out: dict = {}
+    rng = np.random.default_rng(14)
+    g_keys = reference_generator_keys(g_cfg)
+    d_keys = reference_discriminator_keys(d_cfg)
+    gen_path, disc_path = tmp / 'Best_Gen', tmp / 'Best_Dis'
+    torch.save(seeded_state_dict(g_keys, rng), gen_path)
+    torch.save(seeded_state_dict(d_keys, rng), disc_path)
+    migrated = tmp / 'migrated'
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'a2m_torch.compat', '--gen', str(gen_path),
+         '--disc', str(disc_path), '--out', str(migrated)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=600)
+    out['compat_cli_s'] = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f'migrate: compat: {line}', flush=True)
+    require(proc.returncode == 0, f'python -m a2m_torch.compat failed:\n'
+            f'{proc.stderr[-4000:]}')
+    for name in ('best_gen.npz', 'imported_disc.npz'):
+        with np.load(migrated / name) as z:
+            dtypes = {str(z[k].dtype) for k in z.files}
+        require(dtypes == {'float32'}, f'{name} holds {dtypes}')
+        out[f'{name}_mb'] = (migrated / name).stat().st_size / 1e6
+    require('generator: imported with 0 structural skip(s), 0 leaf/leaves '
+            'left at init, 0 unused' in proc.stdout, 'generator report')
+    print(f'migrate: python -m a2m_torch.compat {out["compat_cli_s"]:.2f} s '
+          f'(host clock, process start included), best_gen.npz '
+          f'{out["best_gen.npz_mb"]:.1f} MB, imported_disc.npz '
+          f'{out["imported_disc.npz_mb"]:.1f} MB, all f32', flush=True)
+
+    # ---- head-permutation markers through K1 at full width -----------------
+    zero = {k: torch.zeros(s, dtype=torch.float32) if s else torch.tensor(0)
+            for k, s in g_keys.items()}
+    for k, s in g_keys.items():
+        if k.endswith('running_var'):
+            zero[k] = torch.ones(s)
+    zero['body_logits.bias'] = torch.arange(0, 20, dtype=torch.float32)
+    zero['hand_logits.bias'] = torch.arange(20, 104, dtype=torch.float32)
+    markers = {}
+    for tag, precise in (('f32', True), ('bf16', False)):
+        g = Generator(dataclasses.replace(g_cfg, fused_gcn=True,
+                                          fused_precise=precise))
+        state, report = import_generator(zero, g)
+        require(not report.unused and not report.missing,
+                f'markers import {report}')
+        g.load_state_dict(state)
+        g = g.to('cuda').eval()
+        reset_kernel_launches()
+        with torch.inference_mode():
+            y = g(torch.zeros(2, 64, 128, device='cuda')).cpu()
+        markers[tag] = kernel_launches()
+        require(markers[tag]['gcn_stack'] == 2, f'markers launches '
+                f'{markers[tag]}: expected K1 x2')
+        require(torch.equal(y, torch.arange(104, dtype=torch.float32)
+                            .expand(2, 64, 104)),
+                f'{tag} head markers: channel s != s (max error '
+                f'{(y - torch.arange(104.0)).abs().max():.3g})')
+        del g
+    out['markers'] = dict(exact=True, launches=markers)
+    print(f'migrate: head markers at full width exact (every channel its '
+          f'own index, f32 and bf16 operands), launches {markers}',
+          flush=True)
+
+    # ---- the migrated generator on the card against the CPU ----------------
+    flat, stats = load_generator_npz(migrated / 'best_gen.npz')
+    require(stats == {}, 'the migration ships no pose statistics')
+    audio = torch.from_numpy(
+        np.random.default_rng(140).standard_normal((8, 64, 128))
+        .astype(np.float32))
+    cpu = Generator(g_cfg)
+    cpu.load_state_dict(from_jax_variables(flat, cpu))
+    with torch.inference_mode():
+        ref = cpu.eval()(audio)
+    del cpu
+    require(bool(torch.isfinite(ref).all()), 'CPU forward not finite')
+    held = {}
+    for tag, precise, tol in (('f32', True, MIGRATED_F32_TOL),
+                              ('bf16', False, MIGRATED_BF16_TOL)):
+        g = Generator(dataclasses.replace(g_cfg, fused_gcn=True,
+                                          fused_precise=precise))
+        g.load_state_dict(from_jax_variables(flat, g))
+        g = g.to('cuda').eval()
+        reset_kernel_launches()
+        with torch.inference_mode():
+            y = g(audio.cuda()).cpu()
+        launches = kernel_launches()
+        require(launches['gcn_stack'] == 2, f'migrated G {tag} launches '
+                f'{launches}: expected K1 x2')
+        err = float((y - ref).abs().max() / ref.abs().max())
+        held[tag] = dict(rel_err=err, tol=tol, launches=launches)
+        print(f'migrate: migrated G on the card ({tag} GCN operands, K1 x2) '
+              f'vs the CPU plain path, B = 8: max err {err:.3e} of '
+              f'max|pose| {float(ref.abs().max()):.4f} (tol {tol:g})',
+              flush=True)
+        require(err <= tol, f'migrated G {tag}: {err:.3e} > {tol:g}')
+        del g
+    out['card_vs_cpu'] = held
+    return migrated, out
+
+
+def fine_tune_check(tmp: Path, migrated: Path, loader) -> dict:
+    """Phase 14 (a), last part: ``run()`` with ``train.init_from`` the
+    migration; G and D bit-equal to the imported files before the first
+    step, K3/K4 x2 a ``g_step``."""
+    import torch
+    from a2m_torch.config import Config, apply_overrides
+    from a2m_torch.train import loop
+    from a2m_torch.train.__main__ import run
+    from a2m_torch.weights import from_jax_variables, load_generator_npz
+
+    cfg = apply_overrides(Config(), [
+        f'train.save_dir={tmp / "finetune"}', 'train.n_epochs=1',
+        f'train.init_from={migrated}'])
+    lines: list[str] = []
+    before: dict = {}
+    original_fit = loop.Trainer.fit
+
+    def checked_fit(trainer, *args, **kwargs):
+        """The state the first step starts from, against the files."""
+        for name, model in (('best_gen.npz', trainer.g_state.model),
+                            ('imported_disc.npz', trainer.d_state.model)):
+            flat, _ = load_generator_npz(migrated / name)
+            want = from_jax_variables(flat, model)
+            before[name] = all(torch.equal(v.cpu(), want[k])
+                               for k, v in model.state_dict().items())
+            before[f'{name}_optimizer_fresh'] = (
+                trainer.g_state if name == 'best_gen.npz'
+                else trainer.d_state).optimizer.state_dict()['state'] == {}
+        before['g_params'] = [p.detach().clone() for p in
+                              trainer.g_state.model.parameters()]
+        return original_fit(trainer, *args, **kwargs)
+
+    loop.Trainer.fit = checked_fit
+    try:
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        trainer = run(cfg, loader, log=lambda line: (
+            lines.append(line), print(f'migrate: fine-tune: {line}',
+                                      flush=True)))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        loop.Trainer.fit = original_fit
+    launches = kernel_launches()
+    require(f'initialized G+D from {migrated}' in lines,
+            'no "initialized G+D" line')
+    flags = {k: v for k, v in before.items() if k != 'g_params'}
+    require(before.get('best_gen.npz') and before.get('imported_disc.npz'),
+            f'G/D not bit-equal to the import before the first step: '
+            f'{flags}')
+    require(before['best_gen.npz_optimizer_fresh']
+            and before['imported_disc.npz_optimizer_fresh'],
+            'optimisers did not start fresh')
+    moved = any(not torch.equal(a, b) for a, b in zip(
+        before['g_params'], trainer.g_state.model.parameters()))
+    require(moved, 'the fine-tune did not move G')
+    g_steps = launches['gcn_stack_fwd'] // 2
+    require(g_steps > 0 and launches['gcn_stack_fwd']
+            == launches['gcn_stack_bwd'] == 2 * g_steps,
+            f'fine-tune launches {launches}: expected K3 and K4 x2 a G step')
+    require(launches['gcn_stack'] > 0 and launches['gcn_stack'] % 2 == 0,
+            f'fine-tune launches {launches}: expected K1 x2 a D step and '
+            f'dev batch')
+    hist = trainer.loss_history
+    require(all(v == v for v in hist['val_g'] + hist['train_g']),
+            f'fine-tune losses {hist}')
+    print(f'migrate: fine-tune run() {run_s:.2f} s (1 epoch of '
+          f'{MIGRATE_CAPS["train"]} batches, B = 128; host clock, build '
+          f'included): G and D bit-equal to the import before the first '
+          f'step, optimisers fresh, launches {launches} ({g_steps} G steps)',
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(run_s=run_s, launches=launches, g_steps=g_steps,
+                bit_equal_before_first_step=True, val_g=hist['val_g'])
+
+
+def render_check(tmp: Path, migrated: Path, loader, recipe: dict) -> dict:
+    """Phase 14 (b): the harness with ``render_sample_to`` on the migrated
+    generator where matplotlib and PIL are installed; else the harness and
+    the sample's keypoints (``generate_video.sample_keypoints``) without
+    drawing."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from a2m_torch.eval.harness import evaluate_speaker
+    from a2m_torch.viz import generate_video
+
+    have = {m: _have(m) for m in ('matplotlib', 'PIL')}
+    have['ffmpeg'] = shutil.which('ffmpeg') is not None
+    draw = have['matplotlib'] and have['PIL']
+    print(f'migrate: on this machine matplotlib {have["matplotlib"]}, PIL '
+          f'{have["PIL"]}, ffmpeg {have["ffmpeg"]}: '
+          f'{"drawing the sample video" if draw else "no drawing"}',
+          flush=True)
+    test_batches = len(loader.test)
+    reset_kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluate_speaker(None, recipe['speaker'], migrated,
+                           batch_size=recipe['batch_size'], device='cuda',
+                           loader=loader,
+                           render_sample_to=tmp / 'video' if draw else None)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel_launches()
+    # the harness: K1 x2 a batch; the sample video: one more forward
+    calls = test_batches + (1 if draw else 0)
+    require(launches['gcn_stack'] == 2 * calls
+            and launches['gcn_stack_fwd'] == 0,
+            f'harness launches {launches}: expected K1 x2 on {calls} calls')
+    require(res['n_clips'] == 348 and np.isfinite(res['l2']),
+            f'harness on the migrated G: {res}')
+    out = dict(have=have, drew=draw, wall_ms=wall_ms, launches=launches,
+               n_clips=res['n_clips'], pck=res['pck'], l2=res['l2'])
+    if draw:
+        video = Path(res['video'])
+        require(video.is_file() and video.stat().st_size > 0,
+                f'no sample video at {video}')
+        out['video'] = dict(name=video.name, kb=video.stat().st_size / 1e3)
+    else:
+        reset_kernel_launches()
+        s = generate_video.sample_keypoints(
+            None, recipe['speaker'], migrated,
+            batch_size=recipe['batch_size'], device='cuda', loader=loader)
+        sample_launches = kernel_launches()
+        require(sample_launches['gcn_stack'] == 2,
+                f'sample launches {sample_launches}')
+        require(s['gp_disp'].shape == s['rp_disp'].shape == (64, 2, 52)
+                and np.isfinite(s['gp_disp']).all(),
+                'sample keypoints not finite')
+        out['sample'] = dict(pck_mean=s['pck_mean'],
+                             launches=sample_launches)
+    print(f'migrate: harness on the migrated G: {res["n_clips"]} clips, '
+          f'PCK {res["pck"]:.4f}, L2 {res["l2"]:.4f}, {wall_ms:.1f} ms (host '
+          f'clock, build and load included), launches {launches}; '
+          f'{out.get("video") or out.get("sample")}', flush=True)
+    return out
+
+
+def benchmarks_check(tmp: Path, golden: dict) -> dict:
+    """Phase 14 (c): ``python -m a2m_torch.eval.benchmarks`` on all six
+    configs in a process of its own, launches asserted per config."""
+    out_file = tmp / 'bench.json'
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'a2m_torch.eval.benchmarks', '--configs',
+         '1,2,3,4,5,6', '--out', str(out_file)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f'benchmarks: {line}', flush=True)
+    require(proc.returncode == 0, f'python -m a2m_torch.eval.benchmarks '
+            f'failed:\n{proc.stderr[-4000:]}')
+    rows = {r['config']: r for r in json.loads(out_file.read_text())}
+    require(list(rows) == ['single_clip', 'batched_features', 'train_step',
+                           'multi_speaker_training', 'e2e_eval',
+                           'streaming'], f'configs {list(rows)}')
+    none = dict(log_mel=0, log_mel_exact=0, gcn_stack=0, gcn_stack_fwd=0,
+                gcn_stack_bwd=0, gcn_stack_edge=0)
+    c1, c2, c3 = rows['single_clip'], rows['batched_features'], \
+        rows['train_step']
+    expected = {
+        'single_clip': dict(none, log_mel_exact=1,
+                            gcn_stack=2 * c1['forward_calls']),
+        'batched_features': dict(none, log_mel=c2['kernel_calls']),
+        'train_step': dict(none, gcn_stack=2 * c3['d_steps'],
+                           gcn_stack_fwd=2 * c3['g_steps'],
+                           gcn_stack_bwd=2 * c3['g_steps'])}
+    for name, want in expected.items():
+        require(rows[name]['launches'] == want,
+                f'{name} launches {rows[name]["launches"]}, expected {want}')
+    for name in ('multi_speaker_training', 'e2e_eval', 'streaming'):
+        got = rows[name]['launches']
+        used = {'multi_speaker_training': ('gcn_stack', 'gcn_stack_fwd',
+                                           'gcn_stack_bwd'),
+                'e2e_eval': ('gcn_stack',),
+                'streaming': ('log_mel', 'gcn_stack_edge')}[name]
+        require(all(got[k] > 0 for k in used)
+                and all(got[k] == 0 for k in got if k not in used)
+                and all(got[k] % 2 == 0 for k in used if k != 'log_mel'),
+                f'{name} launches {got}: expected {used} only')
+    c4 = rows['multi_speaker_training']['launches']
+    require(c4['gcn_stack_fwd'] == c4['gcn_stack_bwd'],
+            f'multi_speaker_training launches {c4}')
+    require(c1['logmel_max_abs_err_vs_float64'] <= BENCH_PARITY_TOL,
+            f'config 1 parity {c1["logmel_max_abs_err_vs_float64"]}')
+    require(c3['g_loss_finite'] and c3['d_loss_finite'], 'config 3 losses')
+    flagship = rows['e2e_eval'].get('flagship')
+    require(flagship is not None, 'config 5 found no flagship checkpoint')
+    pck_err = {a: abs(flagship['pck_by_alpha'][a] - v)
+               for a, v in golden['pck_by_alpha'].items()}
+    require(flagship['n_clips'] == golden['n_clips']
+            and max(pck_err.values()) <= BENCH_FLAGSHIP_PCK_TOL,
+            f'config 5 flagship {flagship} against the golden '
+            f'{golden["pck_by_alpha"]}')
+    require(rows['streaming']['multi_streams_ok']
+            and rows['streaming']['compile_cached'], 'config 6')
+    print(f'benchmarks: all six configs in {cli_s:.1f} s of one process '
+          f'(host clock); launches as expected; config 1 parity '
+          f'{c1["logmel_max_abs_err_vs_float64"]:.3e}; config 5 flagship '
+          f'PCK {flagship["pck_by_alpha"]} vs the golden '
+          f'{golden["pck_by_alpha"]} (tol {BENCH_FLAGSHIP_PCK_TOL:g})',
+          flush=True)
+    return dict(cli_s=cli_s, rows=rows, flagship_pck_err=pck_err)
+
+
+def migrate_phase(smi: str) -> dict:
+    """Phase 14: a reference checkpoint migrated, evaluated, rendered and
+    fine-tuned, then a2m's six benchmark configs, on the card."""
+    import tempfile
+
+    from a2m_torch.config import DiscriminatorConfig, GeneratorConfig
+    from a2m_torch.data.synthetic import synthetic_loader
+    from a2m_torch.device import resolve_device
+
+    t_phase = time.perf_counter()
+    resolve_device('cuda')              # TF32 off, as every entry point
+    golden = json.loads((ROOT / 'a2m_torch' / 'testdata'
+                         / 'harness_golden.json').read_text())
+    recipe = golden['recipe']
+    loader = synthetic_loader(
+        **{k: recipe[k] for k in ('speakers', 'intervals_per_speaker',
+                                  'duration_s', 'seed', 'deterministic',
+                                  'splits')},
+        batch_size=recipe['batch_size'], window_hop=recipe['window_hop'],
+        max_batches=MIGRATE_CAPS)
+    (ROOT / 'build').mkdir(exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        migrated, out['migration'] = migration_check(
+            tmp, GeneratorConfig(), DiscriminatorConfig())
+        out['migration']['s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out['fine_tune'] = fine_tune_check(tmp, migrated, loader)
+        out['fine_tune']['s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out['render'] = render_check(tmp, migrated, loader, recipe)
+        out['render']['s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out['benchmarks'] = benchmarks_check(tmp, golden)
+        out['benchmarks']['s'] = time.perf_counter() - t0
+    out['total_s'] = time.perf_counter() - t_phase
+    print(f'migrate: phase {out["total_s"]:.1f} s (migration '
+          f'{out["migration"]["s"]:.1f}, fine-tune {out["fine_tune"]["s"]:.1f}'
+          f', harness and render {out["render"]["s"]:.1f}, benchmark CLI '
+          f'{out["benchmarks"]["s"]:.1f}); {smi}', flush=True)
+    return out
+
+
+def phase14_launches(migrate: dict) -> dict:
+    """Per kernel, its launches in each part of phase 14 that ran it."""
+    parts = {
+        'markers': [migrate['migration']['markers']['launches'][t]
+                    for t in ('f32', 'bf16')],
+        'migrated_vs_cpu': [migrate['migration']['card_vs_cpu'][t]
+                            ['launches'] for t in ('f32', 'bf16')],
+        'fine_tune': [migrate['fine_tune']['launches']],
+        'harness': [migrate['render']['launches']]
+        + ([migrate['render']['sample']['launches']]
+           if 'sample' in migrate['render'] else []),
+        **{f'benchmarks_{row["config"]}': [row['launches']]
+           for row in migrate['benchmarks']['rows'].values()}}
+    names = ('gcn_stack', 'log_mel', 'gcn_stack_fwd', 'gcn_stack_bwd',
+             'gcn_stack_edge', 'log_mel_exact')
+    out = {}
+    for name in names:
+        counts = {part: sum(c[name] for c in cs) for part, cs in parts.items()}
+        out[name] = {part: n for part, n in counts.items() if n}
+    return out
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2755,6 +3352,9 @@ def main() -> int:
     print(json.dumps({'export': exp, 'device': smi}))
     multi = dist_phase(smi)
     print(json.dumps({'dist': multi, 'device': smi}))
+    migrate = migrate_phase(smi)
+    print(json.dumps({'migrate': migrate, 'device': smi}))
+    p14 = phase14_launches(migrate)
     artifact_launches = {name: a['launches']
                          for name, a in exp['artifacts'].items()}
     stack = dict(route='cuda', library_ms=None)
@@ -2790,6 +3390,10 @@ def main() -> int:
              **{k: data['k2x'][k] for k in ('ms', 'plain_ms', 'bound_ms',
                                             'bound_by', 'library_ms')}),
     ]
+    for k in kernels:
+        k['phase14_launches'] = p14[k['name']]
+    print(f'chip_smoke: phase 14 {migrate["total_s"]:.1f} s, the whole '
+          f'script {time.perf_counter() - t_script:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

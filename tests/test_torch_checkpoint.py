@@ -289,8 +289,9 @@ def test_init_from_loads_weights_and_stats(bridge, tmp_path):
     np.testing.assert_array_equal(trainer.mean.numpy(), mean)
     np.testing.assert_array_equal(trainer.std.numpy(), std)
     assert trainer.start_epoch == 0
+    # a2m's Orbax discriminator directory: the port reads only the .npz
     (path.parent / 'imported_disc').mkdir()
-    with pytest.raises(ValueError, match='A14'):
+    with pytest.raises(ValueError, match='Orbax'):
         Trainer.from_config(cfg, _tiny_loader(), device='cpu')
 
 

@@ -138,7 +138,9 @@ def test_harness_recomputes_the_stats_a2ms_would(pats_root, npz):
     assert got != _port(pats_root, npz['noah'])
 
 
-def test_harness_takes_a_loader_and_needs_cuda_by_default(pats_root, npz):
+def test_harness_takes_a_loader_and_needs_cuda_by_default(pats_root, npz,
+                                                           tmp_path,
+                                                           monkeypatch):
     from a2m_torch.data import DataLoader
     test = DataLoader(path2data=pats_root, speaker=['oliver'], batch_size=8,
                       window_hop=5, shuffle=False, device='cpu').test
@@ -154,9 +156,24 @@ def test_harness_takes_a_loader_and_needs_cuda_by_default(pats_root, npz):
                            max_batches=1)
     assert got['n_clips'] == 8 and list(got['pck_by_alpha']) == ['0.1']
     assert np.isfinite(got['l2'])
-    with pytest.raises(NotImplementedError, match='A14'):
-        evaluate_speaker(None, 'oliver', npz['noah'], cfg=cfg,
-                         device='cpu', loader=loader, render_sample_to='x')
+    # render_sample_to hands the same loader and device to the sample
+    # video (drawn and held to a2m's by tests/test_torch_viz.py)
+    from a2m_torch.viz import generate_video
+    calls = []
+
+    def fake_render(*args, **kwargs):
+        calls.append((args, kwargs))
+        return dict(video='sample.gif', pck_mean=0.5)
+
+    monkeypatch.setattr(generate_video, 'run', fake_render)
+    got = evaluate_speaker(None, 'oliver', npz['noah'], cfg=cfg,
+                           device='cpu', loader=loader, max_batches=1,
+                           render_sample_to=tmp_path)
+    assert got['video'] == 'sample.gif'
+    (args, kwargs), = calls
+    assert args == (None, 'oliver', npz['noah'], tmp_path)
+    assert kwargs['loader'] is loader and kwargs['device'] == 'cpu'
+    assert kwargs['cfg'] is cfg
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             evaluate_speaker(None, 'oliver', npz['noah'], loader=loader)

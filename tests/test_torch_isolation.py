@@ -125,3 +125,66 @@ def test_config_declares_the_edge_form_switch():
     assert 'fused_edge' in doc
     assert 'edge-form switches) have no counterpart' not in doc
     assert not hasattr(config.GeneratorConfig(), 'fused_tile')
+
+
+# the modules of the migration, rendering and benchmark slice import with
+# jax, h5py, pandas, matplotlib and PIL all blocked (the card's machine may
+# lack matplotlib and PIL); drawing then raises, nothing else needs them
+VIEW_PROBE = r'''
+import importlib, pkgutil, sys
+for name in ('jax', 'flax', 'orbax', 'h5py', 'pandas', 'matplotlib', 'PIL'):
+    sys.modules[name] = None
+import a2m_torch
+for info in pkgutil.walk_packages(a2m_torch.__path__, 'a2m_torch.'):
+    importlib.import_module(info.name)
+for name in ('a2m_torch.compat', 'a2m_torch.compat.torch_import',
+             'a2m_torch.compat.__main__', 'a2m_torch.viz',
+             'a2m_torch.viz.render', 'a2m_torch.viz.generate_video',
+             'a2m_torch.data.pose_codec', 'a2m_torch.data.diagnose',
+             'a2m_torch.eval.benchmarks'):
+    importlib.import_module(name)
+loaded = sorted(m for m, mod in sys.modules.items()
+                if m.split('.')[0] in ('a2m', 'jax') and mod is not None)
+assert not loaded, loaded
+import numpy as np, torch
+from a2m_torch.audio.frontend import silence_mask
+from a2m_torch.data.pose_codec import SpeakerStats
+from a2m_torch.eval import benchmarks
+from a2m_torch.viz import render
+assert silence_mask(torch.zeros(16000)).shape == (28,)
+assert SpeakerStats.load_legacy().stats
+assert benchmarks._can_draw() is False
+try:
+    render.draw_pose(np.zeros((2, 52)))
+except ImportError:
+    pass
+else:
+    raise AssertionError('matplotlib was blocked')
+print('drawless')
+'''
+
+
+def test_new_modules_import_without_matplotlib_or_pil():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='', PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, '-c', VIEW_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith('drawless')
+
+
+def test_migration_viz_and_benchmarks_name_no_reference_package():
+    """No line of a2m_torch/compat, a2m_torch/viz or
+    a2m_torch/eval/benchmarks.py imports a2m, jax, flax or orbax, at module
+    level or inside a function."""
+    pkg = ROOT / 'a2m_torch'
+    paths = [*(pkg / 'compat').glob('*.py'), *(pkg / 'viz').glob('*.py'),
+             pkg / 'eval' / 'benchmarks.py']
+    assert len(paths) == 7
+    for path in paths:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            assert not (words[:1] in (['import'], ['from'])
+                        and words[1].split('.')[0] in ('a2m', 'jax', 'flax',
+                                                       'orbax')), \
+                f'{path}: {line}'
