@@ -16,8 +16,10 @@ have no counterpart here, so an override of one raises ``KeyError`` as any
 unknown field does.  ``DistConfig`` brings up a process group
 (:mod:`a2m_torch.parallel.launch`), one process per card, and ``MeshConfig``
 names its data axis; :func:`validate` refuses what the port does not run
-yet: tensor parallelism (``mesh.model > 1``), one process over several
-devices, and a ``compute_dtype`` other than ``'f32'``.
+yet: tensor parallelism (``mesh.model > 1``) and one process over several
+devices.  ``train.compute_dtype`` is ``'f32'`` or ``'bf16'``
+(:func:`torch_dtype`); anything else raises, where a2m falls back to f32
+without a word.
 """
 
 from __future__ import annotations
@@ -184,7 +186,9 @@ class TrainConfig:
     #: ``resume`` restore takes precedence.
     init_from: str = ''
     controller: ControllerConfig = field(default_factory=ControllerConfig)
-    #: matmul/conv compute dtype; the port runs 'f32' only (``validate``)
+    #: matmul/conv compute dtype of G and D: 'f32' or 'bf16' (a2m's
+    #: ``Generator(dtype=jnp.bfloat16)``; parameters, gradients, Adam
+    #: moments, BatchNorm statistics and checkpoints stay f32)
     compute_dtype: str = 'f32'
     #: route the gradient-free generator forwards (the fake generation in
     #: ``d_step``, and ``eval_step``) through the fused forward kernel while
@@ -251,6 +255,21 @@ class Config:
     dist: DistConfig = field(default_factory=DistConfig)
 
 
+#: ``train.compute_dtype`` values and the torch dtypes they name
+COMPUTE_DTYPES = ('f32', 'bf16')
+
+
+def torch_dtype(compute_dtype: str):
+    """The torch dtype of a ``train.compute_dtype``: ``'f32'`` ->
+    ``torch.float32``, ``'bf16'`` -> ``torch.bfloat16``; anything else
+    raises ``ValueError``."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f'train.compute_dtype={compute_dtype!r} not one of '
+                         f'{COMPUTE_DTYPES}')
+    import torch
+    return torch.bfloat16 if compute_dtype == 'bf16' else torch.float32
+
+
 #: validation metrics the eval step reports (train.best_metric choices)
 BEST_METRICS = ('val_g', 'val_d', 'reg', 'pos', 'gan', 'bone', 'angle',
                 'smooth', 'jerk', 'val_pck')
@@ -269,10 +288,7 @@ def validate(cfg: Config) -> Config:
     if cfg.train.lambda_aux > 0 and not cfg.discriminator.use_aux_classifier:
         raise ValueError(
             'train.lambda_aux > 0 requires discriminator.use_aux_classifier')
-    if cfg.train.compute_dtype != 'f32':
-        raise ValueError(
-            f'train.compute_dtype={cfg.train.compute_dtype!r}: the port '
-            f'trains in f32 only (bf16 through autocast is ROADMAP A12c)')
+    torch_dtype(cfg.train.compute_dtype)
     import torch.distributed as dist
     up = dist.is_available() and dist.is_initialized()
     rank, world = (dist.get_rank(), dist.get_world_size()) if up else (0, 1)

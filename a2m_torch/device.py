@@ -9,7 +9,10 @@ def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises for CUDA when it is absent, and
     turns TF32 off for CUDA (``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32``: cuDNN would otherwise run the f32
-    convolutions in TF32, about three decimal digits)."""
+    convolutions in TF32, about three decimal digits), and cuBLAS's reduced
+    precision reductions of bf16 products with it
+    (``allow_bf16_reduced_precision_reduction``: a2m's bf16 products sum
+    in f32)."""
     dev = torch.device(device)
     if dev.type == 'cuda':
         if not torch.cuda.is_available():
@@ -17,4 +20,6 @@ def resolve_device(device) -> torch.device:
                                'device="cpu" to run the port on the CPU')
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
     return dev

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from a2m_torch.config import (Config, DataConfig, DiscriminatorConfig,
-                              GeneratorConfig, TrainConfig)
+                              GeneratorConfig, TrainConfig, torch_dtype)
 from a2m_torch.device import resolve_device
 
 SR = 45600
@@ -135,23 +135,23 @@ def config3_train_step(batch: int = 128, steps: int = 10,
     """Single-speaker train-step loop (``g_step`` + ``d_step``) of a
     full-width generator and discriminator from seed 0 on seeded batches;
     on the card the generator's stacks run the K3/K4 kernels in
-    ``g_step`` and K1 in ``d_step``.  ``compute_dtype='bf16'`` raises, as
-    the config's ``validate`` does (the port trains in f32)."""
+    ``g_step`` and K1 in ``d_step``.  ``compute_dtype`` ('f32' or 'bf16')
+    is both models' (a2m's ``Generator(dtype=...)``)."""
     from a2m_torch.models.discriminator import Discriminator
     from a2m_torch.models.generator import Generator
     from a2m_torch.train.train_step import init_states, make_train_steps
 
-    if compute_dtype != 'f32':
-        raise ValueError(f'compute_dtype={compute_dtype!r}: the port trains '
-                         f'in f32 only (ROADMAP A12c)')
+    dtype = torch_dtype(compute_dtype)
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        g_model = Generator(GeneratorConfig(fused_gcn=dev.type == 'cuda'))
-        d_model = Discriminator(DiscriminatorConfig())
+        g_model = Generator(GeneratorConfig(fused_gcn=dev.type == 'cuda'),
+                            dtype=dtype)
+        d_model = Discriminator(DiscriminatorConfig(), dtype=dtype)
     g_model, d_model = g_model.to(dev), d_model.to(dev)
     gs, ds = init_states(g_model, d_model)
-    g_step, d_step, _ = make_train_steps(g_model, d_model, TrainConfig())
+    g_step, d_step, _ = make_train_steps(
+        g_model, d_model, TrainConfig(compute_dtype=compute_dtype))
     rng = np.random.default_rng(0)
     audio = torch.as_tensor(rng.standard_normal((batch, 64, 128)),
                             dtype=torch.float32).to(dev)

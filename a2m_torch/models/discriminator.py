@@ -3,7 +3,9 @@
 Motion (B, T - 1, 104) -> strided conv trunk -> channel-split body/hand dense
 GAT branches -> fused logits (B, T_out).  The graph branches are dense masked
 attention batched over (B, J, F), in eager PyTorch: they lie outside any
-fused kernel in a2m as well.
+fused kernel in a2m as well.  ``dtype`` is a2m's compute dtype
+(``Discriminator(dtype=jnp.bfloat16)``; see :mod:`a2m_torch.nn.layers`);
+the scores come out in f32.
 """
 
 from __future__ import annotations
@@ -16,26 +18,29 @@ from a2m_torch import constants
 from a2m_torch.config import DiscriminatorConfig
 from a2m_torch.models import losses
 from a2m_torch.nn.graph import DenseGATConv
-from a2m_torch.nn.layers import SelfAttention, adaptive_pool_matrix
+from a2m_torch.nn.layers import (Conv1d, Linear, SelfAttention,
+                                 adaptive_pool_matrix, cast)
 from a2m_torch.nn.masking import MaskedBatchNorm
 
 
 class _ConvBNLReLU(nn.Module):
-    """Conv -> BN -> LeakyReLU(0.2) -> Dropout: D's conv unit.  The order
-    differs from the generator's ``ConvNormRelu`` (dropout before BN)."""
+    """Conv -> BN -> LeakyReLU(0.2) -> cast to ``dtype`` -> Dropout: D's
+    conv unit (``a2m/models/discriminator.py:45-55``).  The order differs
+    from the generator's ``ConvNormRelu`` (dropout before BN)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int = 1, groups: int = 1,
-                 p: float = 0.3):
+                 p: float = 0.3, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv1d(in_channels, out_channels, kernel_size, stride,
-                              padding=padding, groups=groups)
+        self.conv = Conv1d(in_channels, out_channels, kernel_size, stride,
+                           padding=padding, groups=groups, dtype=dtype)
         self.bn = MaskedBatchNorm(out_channels)
         self.dropout = nn.Dropout(p)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bn(self.conv(x.transpose(1, 2)).transpose(1, 2))
-        return self.dropout(F.leaky_relu(x, 0.2))
+        return self.dropout(cast(F.leaky_relu(x, 0.2), self.dtype))
 
 
 class Discriminator(nn.Module):
@@ -44,11 +49,12 @@ class Discriminator(nn.Module):
     config's ``audio_fusion`` is on."""
 
     def __init__(self, config: DiscriminatorConfig = DiscriminatorConfig(),
-                 audio_feats: int = 128):
+                 audio_feats: int = 128, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
         g = cfg.groups
-        common = dict(groups=g, p=cfg.dropout)
+        self.dtype = dtype
+        common = dict(groups=g, p=cfg.dropout, dtype=dtype)
         oc = cfg.out_channels * g
         self.conv1a = _ConvBNLReLU(cfg.in_channels, oc, 4, 2, **common)
         self.conv1b = _ConvBNLReLU(oc, oc, 4, 1, **common)
@@ -62,30 +68,31 @@ class Discriminator(nn.Module):
             cur = cur * mul
         self.conv3a = _ConvBNLReLU(cur, cur * 2, 4, 1, **common)
         self.conv3b = _ConvBNLReLU(cur * 2, cur * 4, 4, 1, **common)
-        self.conv3_attn = SelfAttention(cur * 4)
+        self.conv3_attn = SelfAttention(cur * 4, dtype=dtype)
         self.conv3c = _ConvBNLReLU(cur * 4, cur * 4, 3, 1, **common)
 
         jf = cfg.joint_feat_dim
         nb, nh = constants.NUM_BODY_JOINTS, constants.NUM_HAND_JOINTS
         body_adj = constants.adjacency_from_edges(constants.body_edges(), nb)
         hand_adj = constants.adjacency_from_edges(constants.hand_edges(), nh)
-        self.body_proj = nn.Linear(cur * 2, nb * jf)
-        self.body_gat = DenseGATConv(jf, body_adj, heads=cfg.gat_heads)
-        self.body_graph_out = nn.Linear(nb * jf, cur * 2)
-        self.hand_proj = nn.Linear(cur * 2, nh * jf)
-        self.hand_gat = DenseGATConv(jf, hand_adj, heads=cfg.gat_heads)
-        self.hand_graph_out = nn.Linear(nh * jf, cur * 2)
+        dt = dict(dtype=dtype)
+        self.body_proj = Linear(cur * 2, nb * jf, **dt)
+        self.body_gat = DenseGATConv(jf, body_adj, heads=cfg.gat_heads, **dt)
+        self.body_graph_out = Linear(nb * jf, cur * 2, **dt)
+        self.hand_proj = Linear(cur * 2, nh * jf, **dt)
+        self.hand_gat = DenseGATConv(jf, hand_adj, heads=cfg.gat_heads, **dt)
+        self.hand_graph_out = Linear(nh * jf, cur * 2, **dt)
 
         fused = cur * 8
         if cfg.audio_fusion:
-            self.audio_fusion = nn.Linear(audio_feats, cur * 4)
+            self.audio_fusion = Linear(audio_feats, cur * 4, **dt)
             fused += cur * 4
-        self.logits = nn.Conv1d(fused, cfg.out_shape * g, 3, 1, padding=1,
-                                groups=g)
+        self.logits = Conv1d(fused, cfg.out_shape * g, 3, 1, padding=1,
+                             groups=g, **dt)
         if cfg.use_aux_classifier:
-            self.aux_fc1 = nn.Linear(cur * 4, 512)
+            self.aux_fc1 = Linear(cur * 4, 512, **dt)
             self.aux_dropout = nn.Dropout(cfg.dropout)
-            self.aux_fc2 = nn.Linear(512, cfg.aux_classes)
+            self.aux_fc2 = Linear(512, cfg.aux_classes, **dt)
 
     def _graph_branch(self, x, proj, gat, out, joints: int) -> torch.Tensor:
         b = x.shape[0]

@@ -25,7 +25,9 @@ def pos_to_motion(pose: torch.Tensor) -> torch.Tensor:
 def safe_norm(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """L2 norm with a zero (not NaN) gradient at ``x == 0``.
 
-    Temporal differences of generated motion do hit exact zeros.  The inner
+    Temporal differences of generated motion do hit exact zeros, the more
+    so where the pose is computed in bf16 (neighbouring frames round to
+    one value; ``tests/test_torch_bf16.py``).  The inner
     ``where`` replaces the argument of ``sqrt`` before it is taken:
     ``where(c, 0, sqrt(sq))`` alone would still send NaN back through the
     dead branch.  The primal is exact everywhere."""

@@ -3,7 +3,8 @@
 Counterparts of ``a2m/nn/graph.py`` (``:31-167``).  Inputs are (..., J, F)
 with a constant adjacency A[dst, src] (no self-loops).  The eager
 :class:`GCNStack` is the in-package oracle of the fused stack kernel
-(:mod:`a2m_torch.nn.gcn_kernel`), which ``fused=True`` selects.
+(:mod:`a2m_torch.nn.gcn_kernel`), which ``fused=True`` selects.  Each module
+takes a2m's compute ``dtype`` (see :mod:`a2m_torch.nn.layers`).
 """
 
 from __future__ import annotations
@@ -14,52 +15,68 @@ import torch.nn.functional as F
 from torch import nn
 
 from a2m_torch.nn import gcn_kernel
+from a2m_torch.nn.layers import Linear, cast, f32
 
 
 class DenseGraphConv(nn.Module):
     """torch_geometric ``GraphConv`` (add aggregation):
-    ``(A @ X) @ W_rel + X @ W_root + b``."""
+    ``(A @ X) @ W_rel + X @ W_root + b``, all in ``dtype``."""
 
-    def __init__(self, features: int, adjacency: np.ndarray):
+    def __init__(self, features: int, adjacency: np.ndarray,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.register_buffer('adjacency', torch.as_tensor(adjacency),
                              persistent=False)
-        self.lin_rel = nn.Linear(features, features, bias=False)
-        self.lin_root = nn.Linear(features, features)
+        self.lin_rel = Linear(features, features, bias=False, dtype=dtype)
+        self.lin_root = Linear(features, features, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        neigh = torch.einsum('ij,...jf->...if', self.adjacency, x)
+        neigh = torch.einsum('ij,...jf->...if',
+                             cast(self.adjacency, self.dtype),
+                             cast(x, self.dtype))
         return self.lin_rel(neigh) + self.lin_root(x)
 
 
 class DenseGATConv(nn.Module):
     """torch_geometric ``GATConv`` with concat=False in dense form: self-loops
     added, logits ``LeakyReLU_0.2(a_dst[i] + a_src[j])`` masked to the
-    edges with -inf, softmax over the source j, head mean, + bias."""
+    edges with -inf, softmax over the source j, head mean, + bias.
+
+    In ``dtype`` as a2m (``a2m/nn/graph.py:86-101``): ``xw`` and the logits
+    in ``dtype`` (each a dot of ``xw`` with the attention vector cast to
+    ``dtype``, summed in f32 and rounded once), the masked softmax in f32,
+    ``alpha`` back in ``xw``'s dtype for the product; the f32 bias promotes
+    the output to f32."""
 
     def __init__(self, features: int, adjacency: np.ndarray, heads: int = 4,
-                 negative_slope: float = 0.2):
+                 negative_slope: float = 0.2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         j = adjacency.shape[0]
         mask = np.maximum(adjacency, np.eye(j, dtype=np.float32)) > 0
         self.register_buffer('mask', torch.as_tensor(mask), persistent=False)
         self.heads, self.features = heads, features
-        self.negative_slope = negative_slope
-        self.lin = nn.Linear(features, heads * features, bias=False)
+        self.negative_slope, self.dtype = negative_slope, dtype
+        self.lin = Linear(features, heads * features, bias=False, dtype=dtype)
         self.att_src = nn.Parameter(torch.empty(heads, features))
         self.att_dst = nn.Parameter(torch.empty(heads, features))
         self.bias = nn.Parameter(torch.zeros(features))
         nn.init.xavier_uniform_(self.att_src)
         nn.init.xavier_uniform_(self.att_dst)
 
+    def _logit(self, xw: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+        """(..., J, H): the dot of ``xw`` with ``att`` over F."""
+        return (f32(xw) * f32(cast(att, self.dtype))).sum(-1).to(xw.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xw = self.lin(x).unflatten(-1, (self.heads, self.features))
-        a_src = (xw * self.att_src).sum(-1)             # (..., J, H)
-        a_dst = (xw * self.att_dst).sum(-1)
+        a_src = self._logit(xw, self.att_src)            # (..., J, H)
+        a_dst = self._logit(xw, self.att_dst)
         e = a_dst[..., :, None, :] + a_src[..., None, :, :]   # (.., Jd, Js, H)
         e = F.leaky_relu(e, self.negative_slope)
-        e = e.masked_fill(~self.mask[..., None], float('-inf'))
-        alpha = torch.softmax(e, dim=-2)                # over the source
+        e = f32(e).masked_fill(~self.mask[..., None], float('-inf'))
+        alpha = torch.softmax(e, dim=-2).to(xw.dtype)   # over the source
         out = torch.einsum('...ijh,...jhf->...ihf', alpha, xw)
         return out.mean(dim=-2) + self.bias
 
@@ -74,14 +91,20 @@ class GCNStack(nn.Module):
     one ``torch.autograd.Function`` around the stash-forward and backward
     kernels (``gcn_kernel.gcn_stack_trainable``), whatever ``fused_edge``
     says.  ``fused_edge`` without ``fused`` changes nothing.  A CUDA tensor
-    on the fused path never reaches the eager layers."""
+    on the fused path never reaches the eager layers.
+
+    With ``dtype`` bf16 the eager layers run in bf16 and each LayerNorm in
+    f32, its output cast back (``a2m/nn/graph.py:160-167``); the fused path
+    feeds the kernels f32 and casts their output to ``dtype`` before the
+    dropout, as a2m does around its Pallas kernels (``:145-151``)."""
 
     def __init__(self, features: int, adjacency: np.ndarray,
                  num_layers: int = 5, heads: int = 4, dropout: float = 0.0,
                  fused: bool = False, precise: bool = False,
-                 fused_edge: bool = False):
+                 fused_edge: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.num_layers, self.heads = num_layers, heads
+        self.num_layers, self.heads, self.dtype = num_layers, heads, dtype
         self.fused, self.precise = fused, precise
         self.fused_edge = fused_edge
         self.dropout = nn.Dropout(dropout)
@@ -89,8 +112,10 @@ class GCNStack(nn.Module):
                              torch.as_tensor(adjacency, dtype=torch.float32),
                              persistent=False)
         for i in range(1, num_layers + 1):
-            layer = (DenseGATConv(features, adjacency, heads=heads)
-                     if i % 2 else DenseGraphConv(features, adjacency))
+            layer = (DenseGATConv(features, adjacency, heads=heads,
+                                  dtype=dtype)
+                     if i % 2 else DenseGraphConv(features, adjacency,
+                                                  dtype=dtype))
             setattr(self, f'gcn{i}', layer)
             setattr(self, f'norm{i}', nn.LayerNorm(features, eps=1e-6))
         self._packed = None         # (parameter key, flat buffer)
@@ -149,9 +174,9 @@ class GCNStack(nn.Module):
                            else gcn_kernel.gcn_stack)
                 x = forward(x.float(), self.packed_params(), self.adjacency,
                             self.heads, self.num_layers, self.precise)
-            return self.dropout(x)
+            return self.dropout(cast(x, self.dtype))
         for i in range(1, self.num_layers + 1):
             residual = x
-            x = getattr(self, f'norm{i}')(getattr(self, f'gcn{i}')(x))
-            x = F.leaky_relu(x, 0.2) + residual
+            x = getattr(self, f'norm{i}')(f32(getattr(self, f'gcn{i}')(x)))
+            x = F.leaky_relu(cast(x, self.dtype), 0.2) + residual
         return self.dropout(x)

@@ -1,7 +1,9 @@
 """Mask-aware BatchNorm with a2m's variable layout.
 
 Counterpart of ``a2m/nn/masking.py`` (``:38-106``): normalise over the last
-(channel) axis, eps 1e-5, in f32 at least.  Eval mode uses the running statistics.
+(channel) axis, eps 1e-5, in f32 at least: a bf16 input (a2m's
+``dtype=jnp.bfloat16``) is normalised in f32 and comes out f32, and the
+running statistics stay f32.  Eval mode uses the running statistics.
 Train mode uses the batch moments, weighted by the per-sample (B,) mask of
 the enclosing :func:`batch_mask` context so that wrap-padded rows of a ragged
 final batch are inert, and moves the running statistics with flax's

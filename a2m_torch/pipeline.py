@@ -33,7 +33,7 @@ import torch
 
 from a2m_torch.audio import frontend
 from a2m_torch.config import (AudioConfig, DataConfig, DiscriminatorConfig,
-                              GeneratorConfig, TrainConfig)
+                              GeneratorConfig, TrainConfig, torch_dtype)
 from a2m_torch.constants import AUDIO_FS_MAP, FRAMES_PER_WINDOW
 from a2m_torch.device import resolve_device
 from a2m_torch.models.discriminator import Discriminator
@@ -128,7 +128,8 @@ def build_server(npz=None, device='cuda', fused_edge: bool = True,
 def build_trainer(npz=None, batch: int = 128, device='cuda', seed: int = 0,
                   config: GeneratorConfig = GeneratorConfig(fused_gcn=True),
                   log=print, loader=None, path2data=None,
-                  speaker='oliver', data: DataConfig = DataConfig()):
+                  speaker='oliver', data: DataConfig = DataConfig(),
+                  compute_dtype: str = 'f32'):
     """A :class:`~a2m_torch.train.loop.Trainer` around the flagship
     generator (weights from a packed ``.npz``, default the committed
     flagship; GCN stacks on the fused kernels: the stash-forward and
@@ -142,7 +143,8 @@ def build_trainer(npz=None, batch: int = 128, device='cuda', seed: int = 0,
     port's ``DataLoader`` (``loader_from_config`` on ``data`` with
     ``speaker``; needs ``h5py`` and ``pandas``).  Either way the trainer
     takes the loader's batches and normalises poses by the neck-subtracted
-    moments of its train set.  With neither, the caller sets
+    moments of its train set.  ``compute_dtype`` ('f32' or 'bf16') is the
+    ``train.compute_dtype`` of both models.  With neither, the caller sets
     ``trainer.train_batches`` and ``trainer.dev_batches``, and the
     ``.npz``'s pose statistics normalise.  ``batch`` sizes one warm-up
     ``eval_step`` on zeros after the CUDA kernels are built; 0 skips it."""
@@ -155,15 +157,17 @@ def build_trainer(npz=None, batch: int = 128, device='cuda', seed: int = 0,
             dataclasses.replace(data, path2data=str(path2data),
                                 speakers=speakers),
             AudioConfig(device=str(dev)))
-    g_model = Generator(config)
+    dtype = torch_dtype(compute_dtype)
+    g_model = Generator(config, dtype=dtype)
     flat, stats = load_generator_npz(FLAGSHIP_NPZ if npz is None else npz)
     g_model.load_state_dict(from_jax_variables(flat, g_model))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        d_model = Discriminator(DiscriminatorConfig())
+        d_model = Discriminator(DiscriminatorConfig(), dtype=dtype)
     mean, std = ((None, None) if loader is not None
                  else (stats.get('mean'), stats.get('std')))
-    trainer = Trainer(g_model.to(dev), d_model.to(dev), TrainConfig(),
+    trainer = Trainer(g_model.to(dev), d_model.to(dev),
+                      TrainConfig(compute_dtype=compute_dtype),
                       mean=mean, std=std, seed=seed, log=log, loader=loader)
     if dev.type == 'cuda':
         from a2m_torch import _build

@@ -159,11 +159,14 @@ class Trainer:
         autograd, the forward kernel without), as ``build_trainer`` builds
         them; a2m keeps them opt-in for its TPU compiler's minutes per
         kernel, which the port does not pay.  On the CPU the config's
-        ``fused_gcn`` stands."""
+        ``fused_gcn`` stands.  Both models compute in
+        ``cfg.train.compute_dtype`` (a2m's ``loop.py:65-70``)."""
+        from a2m_torch.config import torch_dtype
         from a2m_torch.device import resolve_device
         from a2m_torch.models.discriminator import Discriminator
         from a2m_torch.models.generator import Generator
         cfg = validate(cfg)
+        dtype = torch_dtype(cfg.train.compute_dtype)
         dev = resolve_device(device)
         g_cfg = cfg.generator
         if dev.type == 'cuda':
@@ -174,8 +177,8 @@ class Trainer:
             _build.build(('gcn_stack', 'gcn_stack_bwd'))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            g_model = Generator(g_cfg)
-            d_model = Discriminator(cfg.discriminator)
+            g_model = Generator(g_cfg, dtype=dtype)
+            d_model = Discriminator(cfg.discriminator, dtype=dtype)
         return cls(g_model.to(dev), d_model.to(dev), cfg.train, seed=seed,
                    log=log, loader=loader, save_dir=cfg.train.save_dir)
 

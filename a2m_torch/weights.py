@@ -15,7 +15,11 @@ the entry:
   ``weight``, same layout.
 
 A grouped ``nn.Conv1d`` follows the ``Conv1d`` rule: flax keeps
-(k, in / groups, out), PyTorch (out, in / groups, k).
+(k, in / groups, out), PyTorch (out, in / groups, k).  A leaf a module
+declares itself (``EmbLin``'s ``emb``, ``SelfAttention``'s ``gamma``, the
+GAT vectors) keeps its name and layout, and the i-th model of a
+``Group``/``BatchGroup`` is registered as ``models_<i>``, the scope flax
+gives a module held in a ``Sequence`` field, so those need no rule.
 :func:`to_jax_variables` is the inverse of :func:`from_jax_variables`.
 """
 

@@ -183,12 +183,43 @@ each fatal on failure:
    H = 2; 5: K1; 6: K2 and K5; nothing else), config 1's log-mel within
    1e-5 of float64, config 5's flagship PCK within 1e-2 of
    ``harness_golden.json`` (bf16 operands).  The phase's seconds and the
-   whole script's are printed.
+   whole script's are printed;
+15. bf16 training (``train.compute_dtype='bf16'``: G and D compute in
+   bf16 as a2m's ``Generator(dtype=jnp.bfloat16)``, parameters and all
+   state f32, K1/K3/K4 fed f32 as a2m feeds its Pallas kernels) and the
+   A14b encoders: (a) the committed flagship as ``Generator(dtype=bf16)``
+   (K1 x2, bf16 operands) and as the f32 generator (K1 x2, f32 operands)
+   at B = 128 on ``a2m_torch/testdata/bf16_golden.json``'s seeded input:
+   the pose f32 as a2m's, and the gap between the two within 2x of a2m's
+   own bf16-vs-f32 gap on the same weights and input (the golden, held by
+   ``tests/test_torch_bf16.py``) in mean and in the median over the rows
+   of each row's max, the max printed beside a2m's; (b) one bf16
+   ``g_step`` and ``d_step`` at full width (the flagship G, a seeded D
+   with its attention gates at 0.5; dropout 0, label noise 0, B = 8, the
+   last row wrap-padded) on the card (K3 and K4 x2, K1 x2) against the
+   same steps on the CPU's plain path: the losses as one vector and each
+   parameter's gradient (tensors under 1024 elements pooled per model) by
+   relative L2 within 2x of the CPU's own bf16-vs-f32 gap, gradients
+   that are zero on the CPU in both dtypes (a saturated attention) zero
+   on the card; (c) phase 11's det fixture through ``train.__main__.run``
+   with ``train.compute_dtype=bf16``, 1 epoch of 4 batches and 1 dev
+   batch: K3 and K4 x2 a G step, K1 x2 a D step and dev batch, no K2, K2x
+   or K5, finite losses, the MFU line at the bf16 peak, the checkpoint's
+   parameters, buffers and Adam moments f32, a resume bit-equal, and the
+   harness on its best G (K1 x2 a batch, 348 clips); (d) ``build_trainer``
+   in bf16 and in f32 at B = 128, both in one process: blocks of 10
+   synchronised ``g_step``s and ``d_step``s after warm-up in turns (f32,
+   bf16, bf16, f32), the median ms by dtype (host clock), and a profiled
+   breakdown of three (kernel ms by category, idle share), then
+   ``config3_train_step(compute_dtype='bf16')``'s line with its launches;
+   (e) each A14b encoder at a2m's default widths (B = 8, T = 64) on the
+   card against the CPU in f32, 1e-4 of max|y|.  The phase's seconds, per
+   part, are printed.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-``phase14_launches`` by part of phase 14); the last line is
-``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
-result.
+``phase14_launches`` by part of phase 14 and ``phase15_launches`` by
+part of phase 15); the last line is ``{"ok": true, "device": {...}}``.
+Without a card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -1737,6 +1768,24 @@ def reset_kernel_launches() -> None:
     mel_kernel.log_mel.exact_launches = 0
 
 
+def same_state(a, b) -> bool:
+    """Two trainers' models (parameters and buffers) and Adam states
+    bit-equal, wherever each keeps them (Adam's ``step`` counter lies on
+    the CPU until a restore maps it to the card)."""
+    import torch
+    for x, y in ((a.g_state, b.g_state), (a.d_state, b.d_state)):
+        sx, sy = x.model.state_dict(), y.model.state_dict()
+        if sx.keys() != sy.keys() or not all(
+                torch.equal(sx[k], sy[k]) for k in sx):
+            return False
+        ox, oy = x.optimizer.state_dict(), y.optimizer.state_dict()
+        if ox['param_groups'] != oy['param_groups'] or not all(
+                torch.equal(v.cpu(), oy['state'][i][k].cpu())
+                for i in ox['state'] for k, v in ox['state'][i].items()):
+            return False
+    return True
+
+
 def train_eval_phase() -> dict:
     """Phase 11: train, checkpoint, resume and evaluate through the user's
     entry points on the det fixture built in memory."""
@@ -1777,19 +1826,6 @@ def train_eval_phase() -> dict:
     def log(line: str) -> None:
         stamps.append((time.perf_counter(), line))
         print(f'train_eval: {line}', flush=True)
-
-    def same_state(a, b) -> bool:
-        for x, y in ((a.g_state, b.g_state), (a.d_state, b.d_state)):
-            sx, sy = x.model.state_dict(), y.model.state_dict()
-            if sx.keys() != sy.keys() or not all(
-                    torch.equal(sx[k], sy[k]) for k in sx):
-                return False
-            ox, oy = x.optimizer.state_dict(), y.optimizer.state_dict()
-            if ox['param_groups'] != oy['param_groups'] or not all(
-                    torch.equal(v, oy['state'][i][k])
-                    for i in ox['state'] for k, v in ox['state'][i].items()):
-                return False
-        return True
 
     (ROOT / 'build').mkdir(exist_ok=True)
     out: dict = {}
@@ -3311,6 +3347,524 @@ def phase14_launches(migrate: dict) -> dict:
     return out
 
 
+# ---- phase 15: bf16 training ------------------------------------------------
+#: a2m's flagship bf16-vs-f32 gap on seeded features (written and held by
+#: tests/test_torch_bf16.py)
+BF16_GOLDEN = ROOT / 'a2m_torch' / 'testdata' / 'bf16_golden.json'
+#: the port's bf16 results within this factor of a2m's bf16 gap (15 (a)),
+#: or of the port's own CPU bf16-vs-f32 gap (15 (b)): a2m's rule, and on
+#: the CPU the port's gap lies within 1.5x of a2m's at the tiny widths
+#: (tests/test_torch_train_step.py)
+BF16_GAP_FACTOR = 2.0
+#: 15 (b): the full-width step's batch; parameter tensors of fewer
+#: elements are held pooled per model (a relative L2 needs a sample: a
+#: conv bias ahead of a BatchNorm has a gradient of rounding noise only)
+BF16_STEP_BATCH, BF16_POOL_BELOW = 8, 1024
+#: 15 (c): batches of the bf16 trainer's epoch; (d): timed steps
+BF16_CAPS = {'train': 4, 'dev': 1}
+BF16_SPEED_STEPS = 10
+#: 15 (e): the A14b encoders on the card against the CPU, f32
+ENCODER_TOL = 1e-4
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over flattened tensors, in float64."""
+    import torch
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def bf16_forward_check() -> dict:
+    """15 (a): the flagship in bf16 (K1 x2, bf16 operands) and in f32 (K1
+    x2, f32 operands) on the golden's input, B = 128: the pose f32 as
+    a2m's; the gap between the two, in mean and in the median over the
+    rows of each row's max, within BF16_GAP_FACTOR of a2m's.  The batch's
+    max is printed beside a2m's, not gated: where two keys of the
+    flagship's saturated bottleneck attention nearly tie, a bf16 rounding
+    moves one sample's attended frame (on the CPU the port's forward does
+    so for one of the 128 rows, doubling the max; its mean 1.03x a2m's);
+    a2m's own run on another summation order would flip others."""
+    import numpy as np
+    import torch
+    from a2m_torch.config import GeneratorConfig
+    from a2m_torch.models.generator import Generator
+    from a2m_torch.weights import from_jax_variables, load_generator_npz
+
+    golden = json.loads(BF16_GOLDEN.read_text())
+    recipe = golden['recipe']
+    x = torch.from_numpy(np.random.default_rng(recipe['seed'])
+                         .standard_normal(recipe['shape'])
+                         .astype(np.float32)).cuda()
+    flat, _ = load_generator_npz(ROOT / recipe['npz'])
+    poses, launches, ms = {}, {}, {}
+    for tag, dtype, precise in (('bf16', torch.bfloat16, False),
+                                ('f32', torch.float32, True)):
+        model = Generator(GeneratorConfig(fused_gcn=True,
+                                          fused_precise=precise),
+                          dtype=dtype)
+        model.load_state_dict(from_jax_variables(flat, model))
+        model = model.cuda().eval()
+        with torch.inference_mode():
+            model(x)
+            reset_kernel_launches()
+            poses[tag] = model(x)
+            torch.cuda.synchronize()
+            launches[tag] = kernel_launches()
+            ms[tag] = host_ms(lambda: model(x))
+        require(launches[tag] == {**{k: 0 for k in launches[tag]},
+                                  'gcn_stack': 2},
+                f'bf16 forward {tag} launches {launches[tag]}: expected K1 '
+                f'x2')
+    require(str(poses['bf16'].dtype).replace('torch.', '')
+            == golden['out_dtype'],
+            f'bf16 pose dtype {poses["bf16"].dtype}, a2m\'s '
+            f'{golden["out_dtype"]}')
+    diff = (poses['bf16'].double() - poses['f32'].double()).abs()
+    gap = dict(max=float(diff.max()), mean=float(diff.mean()),
+               row_max_median=float(diff.amax(dim=(1, 2)).median()))
+    finite = bool(torch.isfinite(poses['bf16']).all())
+    print(f'bf16: forward B = {recipe["shape"][0]}: bf16 vs f32 on the '
+          f'card {gap}, a2m\'s (JAX, CPU) {golden["gap"]} (bound '
+          f'{BF16_GAP_FACTOR}x on mean and row_max_median), '
+          f'max|pose| {float(poses["f32"].abs().max()):.4f} '
+          f'({golden["max_abs_pose"]:.4f} a2m); ms per call bf16 '
+          f'{ms["bf16"]:.2f} f32 {ms["f32"]:.2f} (host clock); launches '
+          f'{launches}', flush=True)
+    require(finite, 'bf16 pose not finite')
+    for stat in ('mean', 'row_max_median'):
+        require(gap[stat] <= BF16_GAP_FACTOR * golden['gap'][stat],
+                f'bf16 forward gap {stat} {gap[stat]:.4e} above '
+                f'{BF16_GAP_FACTOR} x a2m\'s {golden["gap"][stat]:.4e}')
+    return dict(gap=gap, a2m_gap=golden['gap'], launches=launches,
+                ms=ms, max_abs_pose=float(poses['f32'].abs().max()))
+
+
+def bf16_step(device, dtype, precise: bool):
+    """One ``g_step`` and one ``d_step`` of the full-width models (the
+    flagship G; D from seed 0 with every attention gate at 0.5, so that no
+    layer is hidden behind a zero gate; dropout 0, label noise 0, learning
+    rate 0) from the same state on a seeded batch of BF16_STEP_BATCH (the
+    last row wrap-padded), GCN stacks on the kernels (their plain versions
+    on the CPU) in both steps.  Returns (metrics, gradients by name,
+    launches by step)."""
+    import numpy as np
+    import torch
+    from a2m_torch.config import (DiscriminatorConfig, GeneratorConfig,
+                                  TrainConfig)
+    from a2m_torch.models.discriminator import Discriminator
+    from a2m_torch.models.generator import Generator
+    from a2m_torch.train.train_step import init_states, make_train_steps
+    from a2m_torch.weights import from_jax_variables, load_generator_npz
+
+    g = Generator(GeneratorConfig(dropout=0.0, fused_gcn=True,
+                                  fused_precise=precise), dtype=dtype)
+    g.load_state_dict(from_jax_variables(
+        load_generator_npz(ROOT / 'artifacts' / 'flagship_best_gen.npz')[0],
+        g))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        d = Discriminator(DiscriminatorConfig(dropout=0.0), dtype=dtype)
+    with torch.no_grad():
+        for name, p in d.named_parameters():
+            if name.endswith('gamma'):
+                p.fill_(0.5)
+    g, d = g.to(device), d.to(device)
+    states = init_states(g, d, g_lr=0.0, d_lr=0.0)
+    g_step, d_step, _ = make_train_steps(g, d,
+                                         TrainConfig(fused_gcn_eval=True))
+    rng = np.random.default_rng(15)
+    n = BF16_STEP_BATCH
+    mask = np.ones(n, np.float32)
+    mask[-1] = 0
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    args = (put(rng.standard_normal((n, 64, 128)).astype(np.float32)),
+            put((rng.standard_normal((n, 64, 104)) * 10
+                 + 300).astype(np.float32)),
+            torch.zeros(104, device=device), torch.full((104,), 10.0,
+                                                        device=device))
+    snapshot = [{k: v.clone() for k, v in m.state_dict().items()}
+                for m in (g, d)]
+    key = torch.Generator(device=device)
+    grads, launches = {}, {}
+    reset_kernel_launches()
+    _, _, gm = g_step(*states, *args, 0.95, 0.0, key.manual_seed(1),
+                      mask=put(mask))
+    launches['g_step'] = kernel_launches()
+    grads.update({f'g/{k}': p.grad.detach().float().cpu()
+                  for k, p in g.named_parameters()})
+    for m, state in zip((g, d), snapshot):
+        m.load_state_dict(state)
+    reset_kernel_launches()
+    _, _, dm = d_step(*states, *args, 0.95, 0.05, 0.0, key.manual_seed(2),
+                      mask=put(mask))
+    launches['d_step'] = kernel_launches()
+    grads.update({f'd/{k}': p.grad.detach().float().cpu()
+                  for k, p in d.named_parameters()})
+    metrics = {k: float(v) for k, v in {**gm, **dm}.items()}
+    del g, d, states
+    return metrics, grads, launches
+
+
+def bf16_step_check() -> dict:
+    """15 (b): one bf16 ``g_step`` and ``d_step`` at full width on the
+    card against the same steps on the CPU's plain path: the losses
+    (one vector) and each parameter's gradient (tensors of fewer than
+    BF16_POOL_BELOW elements pooled per model) by relative L2 within
+    BF16_GAP_FACTOR of the CPU's own bf16-vs-f32 gap (f32 operands in the
+    stacks' plain versions)."""
+    import torch
+    t0 = time.perf_counter()
+    card = bf16_step('cuda', torch.bfloat16, False)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    require(card[2]['g_step']['gcn_stack_fwd'] == 2
+            and card[2]['g_step']['gcn_stack_bwd'] == 2
+            and card[2]['d_step']['gcn_stack'] == 2
+            and card[2]['d_step']['gcn_stack_fwd'] == 0,
+            f'bf16 step launches {card[2]}: expected K3/K4 x2 a g_step, K1 '
+            f'x2 a d_step')
+    t0 = time.perf_counter()
+    cpu16 = bf16_step('cpu', torch.bfloat16, False)
+    cpu32 = bf16_step('cpu', torch.float32, True)
+    cpu_s = time.perf_counter() - t0
+    keys = sorted(cpu32[0])
+    vec = [torch.tensor([r[0][k] for k in keys]) for r in (card, cpu16,
+                                                            cpu32)]
+    loss = dict(card=rel_l2(vec[0], vec[1]), gap=rel_l2(vec[1], vec[2]))
+    require(all(v == v and abs(v) < float('inf') for v in card[0].values()),
+            f'bf16 step losses {card[0]}')
+    rows, pooled = [], {'g': [[], [], []], 'd': [[], [], []]}
+    # a saturated attention softmax (the flagship's bottleneck) gives its
+    # query and key an exact-zero gradient in bf16 and in f32: held to
+    # zero on the card (1e-6 of the largest gradient), out of the ratios
+    largest = max(float(t.abs().max()) for t in cpu32[1].values())
+    zero = [k for k in sorted(cpu32[1])
+            if not cpu32[1][k].any() and not cpu16[1][k].any()]
+    for k in zero:
+        require(float(card[1][k].abs().max()) <= 1e-6 * largest,
+                f'bf16 step gradient {k}: zero on the CPU, '
+                f'{float(card[1][k].abs().max()):.3e} on the card')
+    for k in sorted(set(cpu32[1]) - set(zero)):
+        trio = [r[1][k] for r in (card, cpu16, cpu32)]
+        if trio[2].numel() < BF16_POOL_BELOW:
+            for acc, t in zip(pooled[k[0]], trio):
+                acc.append(t.flatten())
+            continue
+        rows.append((k, rel_l2(trio[0], trio[1]), rel_l2(trio[1], trio[2])))
+    for m, acc in pooled.items():
+        trio = [torch.cat(a) for a in acc]
+        rows.append((f'{m}/<{BF16_POOL_BELOW} elements, {len(acc[0])} '
+                     f'tensors>', rel_l2(trio[0], trio[1]),
+                     rel_l2(trio[1], trio[2])))
+    ratios = sorted(r[1] / r[2] for r in rows if r[2] > 0)
+    worst = max(rows, key=lambda r: r[1] / max(r[2], 1e-300))
+    print(f'bf16: full-width step B = {BF16_STEP_BATCH}, card against the '
+          f'CPU plain path ({card_s:.1f} s card, {cpu_s:.1f} s CPU): losses '
+          f'rel L2 {loss["card"]:.3e} (CPU bf16-vs-f32 {loss["gap"]:.3e}); '
+          f'gradients of {len(rows)} tensors / pools ({len(zero)} zero '
+          f'on the CPU and on the card): worst {worst[0]} '
+          f'{worst[1]:.3e} (gap {worst[2]:.3e}); ratio to the gap median '
+          f'{ratios[len(ratios) // 2]:.2f}, max {ratios[-1]:.2f}; '
+          f'launches {card[2]}', flush=True)
+    require(loss['card'] <= BF16_GAP_FACTOR * loss['gap'],
+            f'bf16 step losses {card[0]} against the CPU {cpu16[0]} (f32 '
+            f'{cpu32[0]})')
+    for name, got, gap in rows:
+        require(got <= BF16_GAP_FACTOR * gap,
+                f'bf16 step gradient {name}: rel L2 {got:.3e} above '
+                f'{BF16_GAP_FACTOR} x the CPU gap {gap:.3e}')
+    require(all(r[2] > 0 for r in rows),
+            f'bf16 step: a gradient equal in bf16 and f32: '
+            f'{[r[0] for r in rows if r[2] == 0]}')
+    return dict(losses=card[0], loss_rel_l2=loss, tensors=len(rows),
+                zero_gradients=zero,
+                worst=dict(name=worst[0], rel_l2=worst[1], gap=worst[2]),
+                ratio_median=ratios[len(ratios) // 2],
+                ratio_max=ratios[-1],
+                launches=card[2], card_s=card_s, cpu_s=cpu_s)
+
+
+def bf16_trainer_check(tmp: Path, loader, recipe: dict) -> dict:
+    """15 (c): ``train.__main__.run`` with ``train.compute_dtype=bf16`` on
+    phase 11's det fixture (1 epoch of 4 batches, 1 dev batch): launches,
+    finite losses, the MFU line at the bf16 peak, an f32 checkpoint, a
+    bit-equal resume, and the harness on its best G."""
+    import torch
+    from a2m_torch.config import Config, GeneratorConfig, apply_overrides
+    from a2m_torch.eval.harness import evaluate_speaker
+    from a2m_torch.train import checkpoint as ckpt_lib
+    from a2m_torch.train.__main__ import run
+    from a2m_torch.train.loop import Trainer
+
+    save_dir = tmp / 'bf16_run'
+    cfg = apply_overrides(Config(), [
+        f'train.save_dir={save_dir}', 'train.n_epochs=1',
+        'train.compute_dtype=bf16'])
+    lines: list[str] = []
+
+    def log(line: str) -> None:
+        lines.append(line)
+        print(f'bf16: trainer: {line}', flush=True)
+
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    trainer = run(cfg, loader, log=log)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    g_steps = launches['gcn_stack_fwd'] // 2
+    d_steps = launches['gcn_stack'] // 2 - BF16_CAPS['dev']
+    require(trainer.g_state.model.dtype == trainer.d_state.model.dtype
+            == torch.bfloat16, 'the trainer\'s models are not bf16')
+    require(g_steps > 0 and launches['gcn_stack_fwd']
+            == launches['gcn_stack_bwd'] == 2 * g_steps,
+            f'bf16 trainer launches {launches}: expected K3 and K4 x2 a G '
+            f'step')
+    require(launches['gcn_stack'] % 2 == 0
+            and 0 < d_steps <= BF16_CAPS['train'],
+            f'bf16 trainer launches {launches}: expected K1 x2 a D step and '
+            f'dev batch')
+    require(launches['log_mel'] == launches['log_mel_exact']
+            == launches['gcn_stack_edge'] == 0,
+            f'bf16 trainer launches {launches}: no K2, K2x or K5 launch')
+    hist = trainer.loss_history
+    require(hist['val_g'] and all(v == v and abs(v) < float('inf')
+                                  for vs in hist.values() for v in vs),
+            f'bf16 trainer losses {hist}')
+    mfu = trainer.mfu_report
+    mfu_lines = [line for line in lines if 'MFU' in line]
+    require(mfu_lines and all(0 < mfu.get(k, {}).get('mfu', 0) < 1
+                              for k in ('g_step', 'd_step')),
+            f'bf16 MFU {mfu}')
+    saved = ckpt_lib.CheckpointManager(save_dir / 'ckpt').restore()
+    dtypes = {str(v.dtype) for prefix in 'gd'
+              for v in saved[f'{prefix}_model'].values()}
+    dtypes |= {str(v.dtype) for prefix in 'gd'
+               for moments in saved[f'{prefix}_optimizer']['state'].values()
+               for k, v in moments.items() if k != 'step'}
+    require(dtypes == {'torch.float32'},
+            f'bf16 checkpoint dtypes {dtypes}')
+    resumed = Trainer.from_config(cfg, loader, log=log)
+    require(resumed.start_epoch == 1 and same_state(trainer, resumed),
+            'bf16 resume not bit-equal to the saved state')
+    del trainer, resumed
+    reset_kernel_launches()
+    res = evaluate_speaker(None, recipe['speaker'],
+                           save_dir / 'ckpt' / 'best_gen.npz',
+                           batch_size=recipe['batch_size'],
+                           alpha=tuple(recipe['alpha']),
+                           cfg=Config(generator=GeneratorConfig()),
+                           device='cuda', loader=loader)
+    harness_launches = kernel_launches()
+    test_batches = len(loader.test)
+    require(harness_launches['gcn_stack'] == 2 * test_batches
+            and res['n_clips'] == 348 and res['l2'] == res['l2'],
+            f'harness on the bf16 best G: {res["n_clips"]} clips, launches '
+            f'{harness_launches}')
+    print(f'bf16: trainer run() {run_s:.2f} s (1 epoch of '
+          f'{BF16_CAPS["train"]} batches, B = 128, build included): '
+          f'{g_steps} G steps, {d_steps} D steps, launches {launches}; '
+          f'checkpoint all f32, resume bit-equal; {mfu_lines[0]}; harness '
+          f'on its best G: pck {res["pck_by_alpha"]} l2 {res["l2"]:.4f}, '
+          f'launches {harness_launches}', flush=True)
+    return dict(run_s=run_s, launches=launches, g_steps=g_steps,
+                d_steps=d_steps, mfu=mfu, history=hist,
+                harness=dict(pck=res['pck_by_alpha'], l2=res['l2'],
+                             launches=harness_launches))
+
+
+def bf16_speed_check(smi: str) -> dict:
+    """15 (d): ``build_trainer`` in bf16 and in f32 at B = 128 (flagship G,
+    seeded D and batch), both alive in one process: per step, blocks of
+    BF16_SPEED_STEPS synchronised steps after two of warm-up in turns
+    (f32, bf16, bf16, f32), their median host-clock ms by dtype; a
+    profiled breakdown of three (kernel ms, categories, idle share); then
+    ``config3_train_step(compute_dtype='bf16')``'s line."""
+    import statistics
+
+    import torch
+    from a2m_torch.eval import benchmarks
+    from a2m_torch.pipeline import build_trainer
+    from a2m_torch.utils.profiling import kernel_breakdown
+
+    gen = torch.Generator().manual_seed(0)
+    audio = torch.randn(128, 64, 128, generator=gen).cuda()
+    pose = (torch.randn(128, 64, 104, generator=gen) * 10 + 300).cuda()
+    mask = torch.ones(128, device='cuda')
+    steps: dict = {}
+    for dtype in ('bf16', 'f32'):
+        tr = build_trainer(batch=128, compute_dtype=dtype,
+                           log=lambda line: None)
+        real = tr.controller.label_params(0, is_real=True)
+        fake = tr.controller.label_params(0, is_real=False)
+        common = (tr.g_state, tr.d_state, audio, pose, tr.mean, tr.std)
+        steps[dtype] = {
+            'g_step': lambda tr=tr, c=common: tr.g_step(
+                *c, real.smooth_real, real.noise_std, tr.key, mask=mask),
+            'd_step': lambda tr=tr, c=common: tr.d_step(
+                *c, real.smooth_real, fake.smooth_fake, real.noise_std,
+                tr.key, mask=mask)}
+    out: dict = {'launches': {}}
+    for name in ('g_step', 'd_step'):
+        times: dict = {'bf16': [], 'f32': []}
+        for dtype in ('f32', 'bf16', 'bf16', 'f32'):
+            fn = steps[dtype][name]
+            for _ in range(2):
+                fn()
+            reset_kernel_launches()
+            for _ in range(BF16_SPEED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[dtype].append((time.perf_counter() - t0) * 1e3)
+            block = kernel_launches()
+            total = out['launches'].setdefault(f'{dtype}_{name}',
+                                               dict.fromkeys(block, 0))
+            for k, n in block.items():
+                total[k] += n
+        n = 2 * 2 * BF16_SPEED_STEPS        # two launches a step, 2 blocks
+        for dtype in ('bf16', 'f32'):
+            got = out['launches'][f'{dtype}_{name}']
+            want = ({'gcn_stack_fwd': n, 'gcn_stack_bwd': n}
+                    if name == 'g_step' else {'gcn_stack': n})
+            require(got == {**dict.fromkeys(got, 0), **want},
+                    f'{dtype} {name} launches {got}: expected {want}')
+            prof = kernel_breakdown(steps[dtype][name], 3)
+            out[f'{dtype}_{name}'] = dict(
+                median_ms=statistics.median(times[dtype]),
+                min_ms=min(times[dtype]), max_ms=max(times[dtype]),
+                **{k: prof[k] for k in ('wall_ms', 'kernel_ms', 'idle_share',
+                                        'categories_ms')})
+        b, f = out[f'bf16_{name}'], out[f'f32_{name}']
+        conv = {k: v['categories_ms'].get('convolution', 0.0)
+                for k, v in (('bf16', b), ('f32', f))}
+        print(f'bf16: {name} B = 128 median {b["median_ms"]:.2f} ms bf16 '
+              f'against {f["median_ms"]:.2f} f32 (host clock, 2 x '
+              f'{BF16_SPEED_STEPS} synchronised steps each, in turns); '
+              f'profiled: kernels {b["kernel_ms"]:.2f} against '
+              f'{f["kernel_ms"]:.2f} ms, convolution {conv["bf16"]:.2f} '
+              f'against {conv["f32"]:.2f} ms, idle {b["idle_share"]:.0%} '
+              f'against {f["idle_share"]:.0%}; categories bf16 '
+              f'{ {k: round(v, 2) for k, v in b["categories_ms"].items()} }'
+              f', f32 { {k: round(v, 2) for k, v in f["categories_ms"].items()} }'
+              f'; {smi}', flush=True)
+    del steps
+    torch.cuda.empty_cache()
+    reset_kernel_launches()
+    row = benchmarks.config3_train_step(compute_dtype='bf16')
+    row['launches'] = kernel_launches()
+    require(row['g_loss_finite'] and row['d_loss_finite']
+            and row['launches']['gcn_stack_fwd']
+            == row['launches']['gcn_stack_bwd'] == 2 * row['g_steps']
+            and row['launches']['gcn_stack'] == 2 * row['d_steps'],
+            f'config3 bf16 {row}')
+    print(f'bf16: config3_train_step(compute_dtype=bf16): '
+          f'{json.dumps(row)}', flush=True)
+    out['config3'] = row
+    return out
+
+
+def encoders_card_check() -> dict:
+    """15 (e): each A14b encoder at a2m's default widths (the required
+    ones at the generator's 256), eval mode, seeded, B = 8, T = 64, on the
+    card against the CPU in f32 (TF32 off): within ENCODER_TOL of
+    max|y|."""
+    import torch
+    from a2m_torch.nn import encoders as enc
+    cases = {
+        'UNet1DFirstVersion': (lambda: enc.UNet1DFirstVersion(256, 256), 256),
+        'PoseEncoder': (enc.PoseEncoder, 96),
+        'PoseStyleEncoder': (enc.PoseStyleEncoder, 96),
+        'TextEncoder1D': (enc.TextEncoder1D, 300),
+        'AudioEncoder1D': (enc.AudioEncoder1D, 128),
+        'PoseDecoder': (enc.PoseDecoder, (256 + 10) * 8),
+        'StyleDecoder': (enc.StyleDecoder, 256 * 10),
+        'LatentEncoder': (lambda: enc.LatentEncoder(256, 256), 256),
+        'ClusterClassify': (enc.ClusterClassify, 256),
+    }
+    out = {}
+    gen = torch.Generator().manual_seed(0)
+    for name, (make, width) in cases.items():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = make().eval()
+        x = torch.randn(8, 64, width, generator=gen)
+        with torch.inference_mode():
+            ref = model(x)
+            got = model.cuda()(x.cuda()).cpu()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        out[name] = dict(shape=list(got.shape), rel_err=err)
+        require(got.shape == ref.shape and err <= ENCODER_TOL,
+                f'{name} on the card: {err:.2e} of max|y| (shape '
+                f'{tuple(got.shape)})')
+    print(f'bf16: A14b encoders card vs CPU (f32, of max|y|): '
+          f'{ {k: f"{v["rel_err"]:.1e}" for k, v in out.items()} }',
+          flush=True)
+    return out
+
+
+def bf16_phase(smi: str) -> dict:
+    """Phase 15: bf16 training through G, D, the steps and the trainer,
+    and the A14b encoders, on the card."""
+    import tempfile
+
+    from a2m_torch.data.synthetic import synthetic_loader
+    from a2m_torch.device import resolve_device
+
+    t_phase = time.perf_counter()
+    resolve_device('cuda')              # TF32 off, as every entry point
+    golden = json.loads((ROOT / 'a2m_torch' / 'testdata'
+                         / 'harness_golden.json').read_text())
+    recipe = golden['recipe']
+    out: dict = {}
+    # the parts on the card alone first, then (b) with its CPU steps
+    for part, fn in (('forward', bf16_forward_check),
+                     ('speed', lambda: bf16_speed_check(smi)),
+                     ('step', bf16_step_check)):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[part]['s'] = time.perf_counter() - t0
+    loader = synthetic_loader(
+        **{k: recipe[k] for k in ('speakers', 'intervals_per_speaker',
+                                  'duration_s', 'seed', 'deterministic',
+                                  'splits')},
+        batch_size=recipe['batch_size'], window_hop=recipe['window_hop'],
+        max_batches=BF16_CAPS)
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        t0 = time.perf_counter()
+        out['trainer'] = bf16_trainer_check(Path(tmp), loader, recipe)
+        out['trainer']['s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['encoders'] = encoders_card_check()
+    out['encoders']['s'] = time.perf_counter() - t0
+    out['total_s'] = time.perf_counter() - t_phase
+    print(f'bf16: phase {out["total_s"]:.1f} s (forward '
+          f'{out["forward"]["s"]:.1f}, step {out["step"]["s"]:.1f}, trainer '
+          f'{out["trainer"]["s"]:.1f}, speed {out["speed"]["s"]:.1f}, '
+          f'encoders {out["encoders"]["s"]:.1f}); {smi}', flush=True)
+    return out
+
+
+def phase15_launches(bf16: dict) -> dict:
+    """Per kernel, its launches in each part of phase 15 that ran it."""
+    parts = {
+        'forward': list(bf16['forward']['launches'].values()),
+        'step': list(bf16['step']['launches'].values()),
+        'trainer': [bf16['trainer']['launches']],
+        'harness': [bf16['trainer']['harness']['launches']],
+        'speed': list(bf16['speed']['launches'].values()),
+        'config3_bf16': [bf16['speed']['config3']['launches']]}
+    names = ('gcn_stack', 'log_mel', 'gcn_stack_fwd', 'gcn_stack_bwd',
+             'gcn_stack_edge', 'log_mel_exact')
+    out = {}
+    for name in names:
+        counts = {part: sum(c[name] for c in cs) for part, cs in parts.items()}
+        out[name] = {part: n for part, n in counts.items() if n}
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3355,6 +3909,9 @@ def main() -> int:
     migrate = migrate_phase(smi)
     print(json.dumps({'migrate': migrate, 'device': smi}))
     p14 = phase14_launches(migrate)
+    bf16 = bf16_phase(smi)
+    print(json.dumps({'bf16': bf16, 'device': smi}))
+    p15 = phase15_launches(bf16)
     artifact_launches = {name: a['launches']
                          for name, a in exp['artifacts'].items()}
     stack = dict(route='cuda', library_ms=None)
@@ -3392,8 +3949,10 @@ def main() -> int:
     ]
     for k in kernels:
         k['phase14_launches'] = p14[k['name']]
-    print(f'chip_smoke: phase 14 {migrate["total_s"]:.1f} s, the whole '
-          f'script {time.perf_counter() - t_script:.1f} s', flush=True)
+        k['phase15_launches'] = p15[k['name']]
+    print(f'chip_smoke: phase 14 {migrate["total_s"]:.1f} s, phase 15 '
+          f'{bf16["total_s"]:.1f} s, the whole script '
+          f'{time.perf_counter() - t_script:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

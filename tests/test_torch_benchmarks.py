@@ -82,8 +82,12 @@ def test_config3_train_step(tiny_widths):
     assert res['g_loss_finite'] and res['d_loss_finite']
     assert res['g_step_ms'] > 0 and res['d_step_ms'] > 0
     assert (res['g_steps'], res['d_steps']) == (2, 2)
-    with pytest.raises(ValueError, match='A12c'):
-        benchmarks.config3_train_step(batch=2, steps=1, compute_dtype='bf16',
+    bf16 = benchmarks.config3_train_step(batch=2, steps=1,
+                                         compute_dtype='bf16', device='cpu')
+    assert bf16['dtype'] == 'bf16'
+    assert bf16['g_loss_finite'] and bf16['d_loss_finite']
+    with pytest.raises(ValueError, match='compute_dtype'):
+        benchmarks.config3_train_step(batch=2, steps=1, compute_dtype='fp16',
                                       device='cpu')
 
 

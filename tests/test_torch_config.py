@@ -127,7 +127,7 @@ def test_validate_as_a2m(items, accepted):
 
 
 @pytest.mark.parametrize('item,item_id', [
-    ('train.compute_dtype=bf16', 'A12c'),
+    ('train.compute_dtype=fp16', 'compute_dtype'),
     ('mesh.data=2', 'A13'), ('mesh.model=2', 'A13'),
     ('dist.coordinator=localhost:8476', 'A13'),
     ('dist.num_processes=2', 'A13'), ('dist.auto=true', 'A13')])

@@ -12,6 +12,11 @@ differ by design).
   gradients themselves are held at module level (the generator here, the
   discriminator in test_torch_discriminator.py), and Adam apart.
 * With dropout on, only statistics are checked.
+* bf16 (``compute_dtype='bf16'``): one ``g_step`` and one ``d_step`` of the
+  bf16 models on the ragged batch, their metrics, gradients and new
+  BatchNorm statistics within 2x of a2m's own bf16-vs-f32 gap
+  (``torch_parity.assert_within_bf16_gap``), everything they keep f32.
+  Here beside the f32 steps, whose compiled a2m references they reuse.
 """
 
 import copy
@@ -37,7 +42,8 @@ from a2m_torch.models.generator import Generator
 from a2m_torch.nn.graph import GCNStack
 from a2m_torch.train import train_step as steps
 from a2m_torch.weights import from_jax_variables, to_jax_variables
-from torch_parity import port_grads_as_jax, randomize, unflatten
+from torch_parity import (assert_within_bf16_gap, port_grads_as_jax,
+                          randomize, unflatten)
 
 TINY_G = dict(in_channels=16, out_channels=16, joint_feat_dim=8, gat_heads=2,
               dropout=0.0)
@@ -73,16 +79,16 @@ def world():
     cfg = JaxTrainConfig(fused_gcn_eval=False)
     jitted = jsteps.make_train_steps(g_model, d_model, cfg, donate=False)
 
-    def port_states():
-        g = Generator(GeneratorConfig(**TINY_G))
-        d = Discriminator(DiscriminatorConfig(**TINY_D))
+    def port_states(dtype=torch.float32):
+        g = Generator(GeneratorConfig(**TINY_G), dtype=dtype)
+        d = Discriminator(DiscriminatorConfig(**TINY_D), dtype=dtype)
         g.load_state_dict(from_jax_variables(flats['g'], g))
         d.load_state_dict(from_jax_variables(flats['d'], d))
         states = steps.init_states(g, d)
         return states, steps.make_train_steps(g, d, TrainConfig())
 
     return dict(audio=audio, pose=pose, mean=mean, std=std, flats=flats,
-                g_state=g_state, d_state=d_state, jitted=jitted,
+                g_state=g_state, d_state=d_state, jitted=jitted, cfg=cfg,
                 g_model=g_model, port_states=port_states)
 
 
@@ -310,3 +316,142 @@ def test_lambda_aux_needs_the_aux_head():
     d = Discriminator(DiscriminatorConfig(**TINY_D))
     with pytest.raises(ValueError, match='use_aux_classifier'):
         steps.make_train_steps(g, d, TrainConfig(lambda_aux=0.1))
+
+
+#: batches of the bf16 step test: a step's metrics are a few scalars, and
+#: one batch gives one draw of each one's bf16 rounding noise, whose ratio
+#: to another draw (the port's) is heavy-tailed (one batch's d_step
+#: metrics lay 5x a2m's gap from a2m's f32 ones, four batches' 2.06x from
+#: its bf16 ones); over eight batches pooled every ratio of max and mean
+#: lay within 1.5x
+BF16_BATCHES = 8
+
+
+def _bf16_batches(world) -> list[tuple]:
+    """(audio, pose) of the bf16 step test: the world's batch, then seeded
+    ones of the same shapes."""
+    rng = np.random.default_rng(35)
+    out = [(world['audio'], world['pose'])]
+    for _ in range(BF16_BATCHES - 1):
+        out.append((rng.standard_normal(world['audio'].shape)
+                    .astype(np.float32),
+                    (rng.standard_normal(world['pose'].shape) * 10
+                     + 300).astype(np.float32)))
+    return out
+
+
+def _flat(prefix: str, tree) -> dict:
+    return {f'{prefix}/{k}': np.asarray(v) for k, v in
+            traverse_util.flatten_dict(tree, sep='/').items()}
+
+
+def _step_results(g_step, d_step, w, audio, pose, mask) -> dict:
+    """a2m's ``g_step`` and ``d_step`` from the world's states: per step
+    the metrics, the stepped net's gradients (Adam's first moment over
+    1 - b1) and both nets' new BatchNorm statistics, flat."""
+    args = (w['g_state'], w['d_state'], audio, pose, w['mean'], w['std'])
+    new_g, new_d_bs, gm = g_step(*args, SMOOTH_R, 0.0, jax.random.PRNGKey(1),
+                                 mask=mask)
+    new_d, new_g2, dm = d_step(*args, SMOOTH_R, SMOOTH_F, 0.0,
+                               jax.random.PRNGKey(2), mask=mask)
+    out = {}
+    for name, metrics, net, stats in (
+            ('g', gm, new_g, {**_flat('g', new_g.batch_stats),
+                              **_flat('d', new_d_bs)}),
+            ('d', dm, new_d, {**_flat('d', new_d.batch_stats),
+                              **_flat('g', new_g2.batch_stats)})):
+        mu = net.opt_state.inner_state[0].mu
+        out[name] = dict(
+            metrics={k: float(v) for k, v in metrics.items()},
+            grads={k: v / (1 - 0.9) for k, v in _flat('params', mu).items()},
+            stats=stats)
+    return out
+
+
+@pytest.fixture(scope='module')
+def bf16_refs(world):
+    """a2m's f32 (the world's compiled steps) and bf16 steps on each batch
+    of :func:`_bf16_batches`, ragged."""
+    w = world
+    mask = jnp.asarray(MASKS['ragged'])
+    bf16 = [JaxG(JaxGConfig(**TINY_G), dtype=jnp.bfloat16),
+            JaxD(JaxDConfig(**TINY_D), dtype=jnp.bfloat16)]
+    g16, d16, _ = jsteps.make_train_steps(*bf16, w['cfg'], donate=False)
+    return [{'f32': _step_results(*w['jitted'][:2], w, audio, pose, mask),
+             'bf16': _step_results(g16, d16, w, audio, pose, mask)}
+            for audio, pose in _bf16_batches(w)]
+
+
+def _port_bf16_step(w, which: str, audio, pose) -> tuple[dict, object]:
+    """One port bf16 step from the world's variables: its results as
+    :func:`_step_results` gives a2m's, and its states."""
+    mask = _t(MASKS['ragged'])[0]
+    (g_state, d_state), (g_step, d_step, _) = w['port_states'](
+        torch.bfloat16)
+    args = _t(audio, pose, w['mean'], w['std'])
+    if which == 'g':
+        _, _, metrics = g_step(g_state, d_state, *args, SMOOTH_R, 0.0,
+                               torch.Generator().manual_seed(1), mask=mask)
+    else:
+        _, _, metrics = d_step(g_state, d_state, *args, SMOOTH_R, SMOOTH_F,
+                               0.0, torch.Generator().manual_seed(2),
+                               mask=mask)
+    stats = {}
+    for prefix, state in (('g', g_state), ('d', d_state)):
+        stats.update({f'{prefix}/{k[len("batch_stats/"):]}': v
+                      for k, v in to_jax_variables(state.model).items()
+                      if k.startswith('batch_stats/')})
+    stepped = g_state if which == 'g' else d_state
+    return (dict(metrics=metrics, grads=port_grads_as_jax(stepped.model),
+                 stats=stats), (stepped, g_state, d_state))
+
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads for the bf16 steps (sixteen small bf16 steps
+    on the CPU crawl when every worker's threads fill the cores), set and
+    restored around each test only: the f32 gradient test above counts
+    rounding-noise elements that depend on the thread count (ROADMAP
+    queue C)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize('which', ['g', 'd'])
+def test_bf16_step_within_a2ms_bf16_gap(world, bf16_refs, two_threads,
+                                        which):
+    """bf16 ``g_step`` / ``d_step`` (dropout 0, label noise 0, the ragged
+    mask) on eight batches: the metrics, the stepped net's gradients and
+    both nets' new BatchNorm statistics, each pooled over the batches into
+    one vector, within 2x a2m's bf16 gap; parameters, gradients, Adam
+    moments, BatchNorm statistics and metrics stay f32."""
+    got = {'metrics': [], 'grads': [], 'stats': []}
+    refs = {'f32': {k: [] for k in got}, 'bf16': {k: [] for k in got}}
+    for (audio, pose), ref in zip(_bf16_batches(world), bf16_refs):
+        res, (stepped, g_state, d_state) = _port_bf16_step(world, which,
+                                                           audio, pose)
+        assert {v.dtype for v in res['metrics'].values()} == {torch.float32}
+        res['metrics'] = {k: float(v) for k, v in res['metrics'].items()}
+        for part in got:
+            keys = sorted(ref['f32'][which][part])
+            assert sorted(res[part]) == keys, part
+            for dst, src in ((got, res), (refs['f32'], ref['f32'][which]),
+                             (refs['bf16'], ref['bf16'][which])):
+                dst[part].append(np.concatenate(
+                    [np.ravel(src[part][k]) for k in keys]))
+    for part in got:
+        assert_within_bf16_gap(np.concatenate(got[part]),
+                               np.concatenate(refs['f32'][part]),
+                               np.concatenate(refs['bf16'][part]),
+                               f'{which}_step {part}')
+    assert stepped.model.dtype == torch.bfloat16
+    for p in stepped.model.parameters():
+        assert p.dtype == p.grad.dtype == torch.float32
+        assert all(v.dtype == torch.float32 for k, v in
+                   stepped.optimizer.state[p].items() if k != 'step')
+    for state in (g_state, d_state):
+        for name, buf in state.model.named_buffers():
+            if name.endswith(('running_mean', 'running_var')):
+                assert buf.dtype == torch.float32, name

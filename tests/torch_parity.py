@@ -84,3 +84,39 @@ def assert_grads_close(got: dict, ref: dict, tol: float = 1e-3,
         scale = max(np.abs(r).max(), floor)
         np.testing.assert_allclose(got[key], np.asarray(r), rtol=0,
                                    atol=tol * scale, err_msg=key)
+
+
+#: the port's bf16 result against a2m's bf16-vs-f32 gap (tests of
+#: ``compute_dtype='bf16'``)
+BF16_GAP_FACTOR = 2.0
+
+
+def bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 numbers at each |v| (8 significant bits)."""
+    v = np.maximum(np.abs(v), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(v)) - 7)
+
+
+def assert_within_bf16_gap(got, ref32, ref16, what: str = '',
+                           bf16_out: bool = False):
+    """a2m's bf16 yardstick: |got - a2m f32| and |got - a2m bf16| within
+    BF16_GAP_FACTOR x |a2m bf16 - a2m f32|, in max and in mean.
+
+    ``bf16_out``: both results are bf16 numbers (the output is rounded to
+    bf16 last).  Two such roundings of f32 sums taken in another order
+    differ by one bf16 ulp wherever they straddle a rounding boundary,
+    while the gap's max over a small tensor may lie below half an ulp of
+    its largest elements; so against a2m's bf16 result the max rule reads
+    each element's distance less one ulp (the mean rule stays as it is)."""
+    got, ref32, ref16 = (np.asarray(a, np.float64).ravel()
+                         for a in (got, ref32, ref16))
+    gap = np.abs(ref16 - ref32)
+    assert gap.max() > 0, f'{what}: a2m bf16 equals f32'
+    for name, other in (('a2m f32', ref32), ('a2m bf16', ref16)):
+        d = np.abs(got - other)
+        flips = (np.maximum(d - bf16_ulp(ref16), 0)
+                 if bf16_out and other is ref16 else d)
+        assert flips.max() <= BF16_GAP_FACTOR * gap.max(), (
+            what, name, 'max', d.max(), gap.max())
+        assert d.mean() <= BF16_GAP_FACTOR * gap.mean(), (
+            what, name, 'mean', d.mean(), gap.mean())
