@@ -212,12 +212,16 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The data/model mesh (a2m's GSPMD sharding).  The port runs one
-    process per card, so its data axis is the process group: ``data`` is 1,
-    -1 (all ranks) or the world size, and the batch is split across the
-    ranks (:mod:`a2m_torch.parallel.mesh`).  :func:`validate` refuses
-    ``model > 1`` (tensor parallelism) and ``data > 1`` in one process
-    (launch that many processes instead); both are ROADMAP A13b."""
+    """The data/model mesh (a2m's GSPMD sharding), over the ranks of the
+    process group: the port runs one process per card.  ``model`` ranks
+    hold the channel slices of the layers ``TP_RULES`` shard (tensor
+    parallelism); ``data`` (-1: what ``model`` leaves) split the batch
+    (:func:`a2m_torch.parallel.mesh.make_mesh`; rank ``r`` is data rank
+    ``r // model``, model rank ``r % model``).  :func:`validate` wants
+    ``data * model`` ranks, ``model`` dividing every sharded width, and
+    refuses ``model > 1`` or ``data > 1`` in one process (launch that many
+    processes instead: one process over several devices is a deliberate
+    difference from a2m)."""
     data: int = 1                   # batch (data-parallel) axis; -1 = all
     model: int = 1                  # channel-dim (tensor) axis
     axis_names: tuple[str, str] = ('data', 'model')
@@ -292,19 +296,27 @@ def validate(cfg: Config) -> Config:
     import torch.distributed as dist
     up = dist.is_available() and dist.is_initialized()
     rank, world = (dist.get_rank(), dist.get_world_size()) if up else (0, 1)
-    if cfg.mesh.model > 1:
+    model = max(1, cfg.mesh.model)
+    if world == 1 and (model > 1 or cfg.mesh.data > 1):
+        ranks = max(1, cfg.mesh.data) * model
         raise ValueError(
-            f'mesh.model={cfg.mesh.model}: the port has no tensor '
-            f'parallelism (ROADMAP A13b); it runs data parallel, one '
-            f'process per card')
-    if cfg.mesh.data not in (1, -1, world):
-        if world == 1:
+            f'mesh.data={cfg.mesh.data} mesh.model={cfg.mesh.model} in one '
+            f'process: the port runs one process per card (ROADMAP A13, '
+            f'A13b); launch {ranks} processes (A2M_COORDINATOR / '
+            f'A2M_NUM_PROCESSES / A2M_PROCESS_ID, or torchrun '
+            f'--nproc_per_node {ranks} -m a2m_torch.train dist.auto=true) '
+            f'with mesh.data=-1')
+    if model > 1:
+        data, _ = cfg.mesh.resolved_shape(world)
+        if data * model != world:
             raise ValueError(
-                f'mesh.data={cfg.mesh.data} in one process: the port runs '
-                f'one process per card (ROADMAP A13, A13b); launch '
-                f'{cfg.mesh.data} processes (A2M_COORDINATOR / '
-                f'A2M_NUM_PROCESSES / A2M_PROCESS_ID, or torchrun with '
-                f'dist.auto=true)')
+                f'mesh {data}x{model} (mesh.data={cfg.mesh.data}, '
+                f'mesh.model={model}) != the {world} ranks of the group: '
+                f'data x model must be the world size; set mesh.data=-1 '
+                f'(ROADMAP A13b)')
+        from a2m_torch.parallel import mesh
+        mesh.check_shardable(cfg)
+    elif cfg.mesh.data not in (1, -1, world):
         raise ValueError(
             f'mesh.data={cfg.mesh.data} in a group of {world} processes: '
             f'set mesh.data=-1 (or {world}); ROADMAP A13')

@@ -700,8 +700,9 @@ class DataLoader(mods.Modality):
             pc = None if self.process_count == -1 else self.process_count
             pi = None if self.process_index == -1 else self.process_index
             if pi is None or pc is None:
-                from a2m_torch.parallel.mesh import process_identity
-                rank, world = process_identity()
+                # the data rank: the ranks of a model group read one slice
+                from a2m_torch.parallel.mesh import data_identity
+                rank, world = data_identity()
                 pi = pi if pi is not None else rank
                 pc = pc if pc is not None else world
             # balanced-by-window-count assignment + truncate-to-global-min

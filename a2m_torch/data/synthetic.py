@@ -301,19 +301,18 @@ def synthetic_loader(speakers=('oliver', 'noah'),
     windows as ``DataLoader(style_iters=...)`` does: a2m's
     ``AlternateClassSampler`` over the speakers' blocks.
 
-    With ``process_index``/``process_count`` (either -1: this rank / the
-    world size of ``torch.distributed``) each split holds this process's
-    share of the intervals (``parallel.mesh.balanced_host_slices`` by
-    window count) and is cut to the fewest batches of any process, so that
-    every rank runs as many steps (``DataLoader``, ``dataset.py:690-727``);
+    With ``process_index``/``process_count`` (either -1: this data rank /
+    the data size of ``parallel.mesh.data_identity``) each split holds
+    this data rank's share of the intervals
+    (``parallel.mesh.balanced_host_slices`` by window count) and is cut to
+    the fewest batches of any, so that every rank runs as many steps (``DataLoader``, ``dataset.py:690-727``);
     ``max_batches`` then caps that."""
     from types import SimpleNamespace
 
     from a2m_torch.data.dataset import (AlternateClassSampler, Batcher,
                                         ConcatIntervals, IntervalData,
                                         RandomSampler, SequentialSampler)
-    from a2m_torch.parallel.mesh import (balanced_host_slices,
-                                         process_identity)
+    from a2m_torch.parallel.mesh import balanced_host_slices, data_identity
     modalities = ('pose/data', 'audio/log_mel_512')
     rng = np.random.default_rng(seed)
     by_split: dict[str, list] = {'train': [], 'dev': [], 'test': []}
@@ -330,7 +329,7 @@ def synthetic_loader(speakers=('oliver', 'noah'),
     caps = dict(max_batches or {})
     sliced = process_index is not None or process_count is not None
     if sliced:
-        rank, world = process_identity()
+        rank, world = data_identity()
         pi = rank if process_index in (None, -1) else process_index
         pc = world if process_count in (None, -1) else process_count
     out = {}

@@ -6,6 +6,12 @@ attention batched over (B, J, F), in eager PyTorch: they lie outside any
 fused kernel in a2m as well.  ``dtype`` is a2m's compute dtype
 (``Discriminator(dtype=jnp.bfloat16)``; see :mod:`a2m_torch.nn.layers`);
 the scores come out in f32.
+
+Under tensor parallelism (:func:`a2m_torch.parallel.mesh.shard_module`)
+``conv3b`` is column-parallel, ``conv3_attn`` and ``conv3c`` row-parallel
+(a2m's ``TP_RULES``): each rank of a model group holds its slice of the
+2048 channels between them, and ``conv3c``'s output is whole again before
+its BatchNorm.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ from a2m_torch.config import DiscriminatorConfig
 from a2m_torch.models import losses
 from a2m_torch.nn.graph import DenseGATConv
 from a2m_torch.nn.layers import (Conv1d, Linear, SelfAttention,
-                                 adaptive_pool_matrix, cast)
+                                 adaptive_pool_matrix, cast, keep_slice,
+                                 sharded_mode)
 from a2m_torch.nn.masking import MaskedBatchNorm
+from a2m_torch.parallel import tensor as tp_ops
 
 
 class _ConvBNLReLU(nn.Module):
@@ -37,10 +45,46 @@ class _ConvBNLReLU(nn.Module):
         self.bn = MaskedBatchNorm(out_channels)
         self.dropout = nn.Dropout(p)
         self.dtype = dtype
+        self.tp, self.row = None, False
+
+    def shard_(self, shard, own: dict) -> tuple[dict, list]:
+        """Column-parallel (the kernel sliced on its output channels: the
+        bias, BatchNorm and dropout act on this rank's channels) or
+        row-parallel (sliced on its input channels: the partial output is
+        summed over the model group, then the bias, BatchNorm and dropout
+        act on the whole)."""
+        mode = sharded_mode(own, {'column': {'conv.weight': 0},
+                            'row': {'conv.weight': 1}}, '_ConvBNLReLU')
+        if self.conv.groups != 1:
+            raise ValueError('_ConvBNLReLU: a grouped convolution does not '
+                             'shard')
+        self.row = mode == 'row'
+        keep_slice(self.conv, 'weight', 1 if self.row else 0, shard)
+        self.tp = shard
+        if self.row:
+            return {'conv.weight': 1}, []
+        state, partial = self.bn.shard_(shard)
+        return ({'conv.weight': 0, **{f'bn.{k}': d for k, d in state.items()}},
+                ['conv.bias'] + [f'bn.{k}' for k in partial])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x.transpose(1, 2)).transpose(1, 2))
-        return self.dropout(cast(F.leaky_relu(x, 0.2), self.dtype))
+        tp, conv, dt = self.tp, self.conv, self.dtype
+        if tp is None:
+            x = self.bn(conv(x.transpose(1, 2)).transpose(1, 2))
+            return self.dropout(cast(F.leaky_relu(x, 0.2), dt))
+        if self.row:
+            y = tp_ops.reduce_from_model(conv._conv_forward(
+                cast(x.transpose(1, 2), dt), cast(conv.weight, dt), None), tp)
+            y = cast(y + conv.bias[:, None], dt)
+        else:
+            x = tp_ops.copy_to_model(x, tp)
+            bias = conv.bias[tp.part(conv.bias.numel())]
+            y = conv._conv_forward(cast(x.transpose(1, 2), dt),
+                                   cast(conv.weight, dt), cast(bias, dt))
+        x = cast(F.leaky_relu(self.bn(y.transpose(1, 2)), 0.2), dt)
+        if self.row:
+            return self.dropout(x)
+        return tp_ops.dropout(x, self.dropout.p, self.dropout.training, tp)
 
 
 class Discriminator(nn.Module):

@@ -55,7 +55,11 @@ class AudioEncoder(nn.Module):
 
 class UNet1D(nn.Module):
     """Depth-2 1-D U-Net with a bottleneck attention and one up-path
-    attention sized at C * 8.  Input/output (B, T, C)."""
+    attention sized at C * 8.  Input/output (B, T, C).  Under tensor
+    parallelism (:func:`a2m_torch.parallel.mesh.shard_module`, a2m's
+    ``TP_RULES``) ``bottleneck`` is column-parallel and
+    ``bottleneck_attention`` and ``up0`` row-parallel: the C * 8 channels
+    between them are split over the model group."""
 
     def __init__(self, input_channels: int, output_channels: int,
                  p: float = 0.0, dtype: torch.dtype = torch.float32):

@@ -16,6 +16,15 @@ LayerNorm and softmax in f32, a module output cast back to ``dtype`` where
 a2m casts it and promoted to f32 where a2m adds an f32 parameter.  The
 default ``torch.float32`` casts nothing, so a model moved to float64 (a
 test's reference) computes in float64.
+
+**Tensor parallelism.**  ``ConvNormRelu`` (column-parallel),
+``SelfAttention`` and ``ConvTranspose1D`` (row-parallel) have sharded modes
+that :func:`a2m_torch.parallel.mesh.shard_module` switches on (``shard_``)
+for the layers ``TP_RULES`` name; without it they change nothing.  A
+column-parallel layer keeps its slice of the output channels and runs its
+bias, dropout and BatchNorm on them; a row-parallel one its slice of the
+input channels, whose partial products the model group sums
+(:mod:`a2m_torch.parallel.tensor`).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from a2m_torch.nn.masking import MaskedBatchNorm
+from a2m_torch.parallel import tensor as tp_ops
 
 
 def cast(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
@@ -71,6 +81,24 @@ class Conv1d(_ConvInDtype, nn.Conv1d):
 
 class Conv2d(_ConvInDtype, nn.Conv2d):
     """``nn.Conv2d`` computing in ``dtype`` (flax ``Conv(dtype=...)``)."""
+
+
+def keep_slice(module: nn.Module, name: str, dim: int, shard) -> None:
+    """Replace parameter ``name`` of ``module`` by this rank's slice of it
+    along ``dim``."""
+    full = getattr(module, name).detach()
+    part = shard.part(full.shape[dim])
+    setattr(module, name, nn.Parameter(
+        full.narrow(dim, part.start, part.stop - part.start).clone()))
+
+
+def sharded_mode(own: dict, modes: dict, layer: str) -> str:
+    """The sharded mode (``modes``: mode -> its parameters' dimensions) that
+    the sliced parameters ``own`` of ``layer`` ask for."""
+    for mode, dims in modes.items():
+        if own == dims:
+            return mode
+    raise ValueError(f'{layer}: no sharded mode slices {own}')
 
 
 def torch_pad(kernel_size, stride):
@@ -142,18 +170,45 @@ class ConvNormRelu(nn.Module):
         self.dropout = nn.Dropout(p)
         self.norm = MaskedBatchNorm(out_channels * groups)
         self.leaky, self.dtype = leaky, dtype
+        self.tp = None
+
+    def shard_(self, shard, own: dict) -> tuple[dict, list]:
+        """Column-parallel (an ungrouped 1-D convolution sliced on its
+        output channels): the input's gradient is summed over the model
+        group; the bias (replicated) and the BatchNorm act on this rank's
+        channels."""
+        sharded_mode(own, {'column': {'conv.weight': 0}}, 'ConvNormRelu')
+        if not isinstance(self.conv, nn.Conv1d) or self.conv.groups != 1:
+            raise ValueError('ConvNormRelu: only an ungrouped 1-D '
+                             'convolution shards')
+        keep_slice(self.conv, 'weight', 0, shard)
+        state, partial = self.norm.shard_(shard)
+        self.tp = shard
+        return ({'conv.weight': 0, **{f'norm.{k}': d
+                                      for k, d in state.items()}},
+                ['conv.bias'] + [f'norm.{k}' for k in partial])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv, dt = self.conv, self.dtype
+        conv, dt, tp = self.conv, self.dtype, self.tp
+        bias = conv.bias
+        if tp is not None:
+            x = tp_ops.copy_to_model(x, tp)
+            bias = bias[tp.part(bias.numel())]
         if (isinstance(conv, nn.Conv1d) and conv.groups == 1
                 and torch.is_grad_enabled()
                 and (x.requires_grad or conv.weight.requires_grad)):
             x = conv1d_as_matmul(cast(x, dt), cast(conv.weight, dt),
-                                 cast(conv.bias, dt), conv.stride[0],
+                                 cast(bias, dt), conv.stride[0],
                                  conv.padding[0])
         else:
-            x = conv(x.movedim(-1, 1)).movedim(1, -1)
-        x = self.norm(self.dropout(x))
+            x = conv._conv_forward(cast(x.movedim(-1, 1), dt),
+                                   cast(conv.weight, dt),
+                                   cast(bias, dt)).movedim(1, -1)
+        if tp is None:
+            x = self.dropout(x)
+        else:
+            x = tp_ops.dropout(x, self.dropout.p, self.dropout.training, tp)
+        x = self.norm(x)
         return cast(F.leaky_relu(x, 0.2) if self.leaky else F.relu(x), dt)
 
 
@@ -169,11 +224,44 @@ class SelfAttention(nn.Module):
         self.key = Linear(in_channels, in_channels // 8, dtype=dtype)
         self.value = Linear(in_channels, in_channels, dtype=dtype)
         self.gamma = nn.Parameter(torch.zeros(1))
+        self.tp = None
+
+    def shard_(self, shard, own: dict) -> tuple[dict, list]:
+        """Row-parallel (query, key and value sliced on their input
+        channels; the input is this rank's channels): the partial query and
+        key are summed over the model group, the partial value
+        reduce-scattered to this rank's channels, and ``gamma * attn @ v +
+        x`` stays on them."""
+        rows = {f'{n}.weight': 1 for n in ('query', 'key', 'value')}
+        sharded_mode(own, {'row': rows}, 'SelfAttention')
+        for name in ('query', 'key', 'value'):
+            keep_slice(getattr(self, name), 'weight', 1, shard)
+        self.tp = shard
+        return rows, ['value.bias', 'gamma']
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = self.query(x), self.key(x), self.value(x)
+        if self.tp is None:
+            q, k, v = self.query(x), self.key(x), self.value(x)
+        else:
+            q, k, v = self._sharded_qkv(x)
         attn = torch.softmax(f32(q @ k.transpose(1, 2)), dim=-1)  # (B, T, T)
+        if self.tp is not None:
+            # each rank applies the attention to its channels only
+            attn = tp_ops.copy_to_model(attn, self.tp)
         return self.gamma * (attn.to(v.dtype) @ v) + x
+
+    def _sharded_qkv(self, x: torch.Tensor) -> tuple:
+        tp, dt = self.tp, self.query.dtype
+
+        def part(lin):          # this rank's term of x @ W.T
+            return F.linear(cast(x, dt), cast(lin.weight, dt))
+
+        q = tp_ops.reduce_from_model(part(self.query), tp) + self.query.bias
+        k = tp_ops.reduce_from_model(part(self.key), tp) + self.key.bias
+        bias = self.value.bias
+        v = (tp_ops.reduce_scatter_channels(part(self.value), tp)
+             + bias[tp.part(bias.numel())])
+        return cast(q, dt), cast(k, dt), cast(v, dt)
 
 
 class ChannelAttention(nn.Module):
@@ -236,6 +324,16 @@ class ConvTranspose1D(nn.Module):
         self.stride, self.padding = stride, padding
         self.output_padding, self.dtype = output_padding, dtype
         self.bn = MaskedBatchNorm(out_channels)
+        self.tp = None
+
+    def shard_(self, shard, own: dict) -> tuple[dict, list]:
+        """Row-parallel (the kernel sliced on its input channels; the input
+        is this rank's channels): the partial output is summed over the
+        model group before the bias and the BatchNorm, which stay whole."""
+        sharded_mode(own, {'row': {'weight': 0}}, 'ConvTranspose1D')
+        keep_slice(self, 'weight', 0, shard)
+        self.tp = shard
+        return {'weight': 0}, []
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -243,6 +341,8 @@ class ConvTranspose1D(nn.Module):
                                cast(self.weight, dt), None,
                                stride=self.stride, padding=self.padding,
                                output_padding=self.output_padding)
+        if self.tp is not None:
+            y = cast(tp_ops.reduce_from_model(y, self.tp), dt)
         return cast(F.relu(self.bn(y.transpose(1, 2) + self.bias)), dt)
 
 

@@ -14,7 +14,11 @@ Inside :func:`a2m_torch.parallel.mesh.global_batch` the train-mode moments
 are those of the global batch, as in a2m's one global program: each rank
 all-reduces its masked sums Σw·x and Σw, then Σw·(x − mean)², through a
 differentiable all-reduce, so the moments, the running statistics and the
-gradients equal a one-process run on the concatenated batch.
+gradients equal a one-process run on the concatenated batch.  Those
+ranks are the data group: under tensor parallelism a BatchNorm on the
+channels of a column-parallel layer (:meth:`MaskedBatchNorm.shard_`)
+normalises this rank's channels, with its slice of the replicated scale
+and bias and its own slice of the running statistics.
 """
 
 from __future__ import annotations
@@ -61,6 +65,21 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
         self.register_buffer('running_var', torch.ones(features))
+        #: the model group's Shard when this BatchNorm sees one rank's
+        #: channels (:meth:`shard_`), else None
+        self.tp = None
+
+    def shard_(self, shard) -> tuple[dict, list]:
+        """Normalise this rank's channels of a column-parallel layer: the
+        running statistics are cut to them; the scale and bias stay whole
+        (replicated, a2m's layout) and each rank uses and updates its part.
+        Returns (sliced entries and their dimension, partial
+        parameters)."""
+        sl = shard.part(self.running_mean.numel())
+        self.running_mean = self.running_mean[sl].clone()
+        self.running_var = self.running_var[sl].clone()
+        self.tp = shard
+        return ({'running_mean': 0, 'running_var': 0}, ['weight', 'bias'])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # half types compute in f32; f64 (a test's reference) stays f64
@@ -80,7 +99,11 @@ class MaskedBatchNorm(nn.Module):
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
                 self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        weight, bias = self.weight, self.bias
+        if self.tp is not None:
+            sl = self.tp.part(weight.numel())
+            weight, bias = weight[sl], bias[sl]
+        return y * weight + bias
 
 
 def _masked_moments(x: torch.Tensor, mask, axes: tuple):

@@ -21,6 +21,13 @@ or through torchrun, whose ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/
 world size``.  The loader gives each process a disjoint, balanced slice of
 the intervals with equal step counts (``data.process_count=-1``).
 
+With ``mesh.model=m`` (and ``mesh.data=-1``) the ranks form a grid of
+``world / m`` data ranks x ``m`` model ranks
+(:func:`a2m_torch.parallel.mesh.make_mesh`, which ``train.__main__``'s
+``bootstrap`` calls): the ``m`` consecutive ranks of a model group read
+the same slice, hold the channel slices of the layers ``TP_RULES`` shard,
+and the global batch is ``batch_size x world / m``.
+
 Backend: NCCL when every rank has a card of its own; gloo on the CPU, or
 when two ranks share a card (NCCL refuses two ranks on one device; gloo
 stages CUDA tensors through the host).  Local rank ``i`` uses card
@@ -43,8 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ['host_barrier', 'is_distributed', 'maybe_initialize', 'shutdown',
-           'sync_global_moments']
+__all__ = ['host_barrier', 'host_group', 'is_distributed',
+           'maybe_initialize', 'shutdown', 'sync_global_moments']
 
 #: seconds a collective may wait for its peers: long enough for a rank's
 #: first kernel build (a2m documents Gloo's 30 s deadline biting,
@@ -210,23 +217,32 @@ def host_barrier(name: str, timeout_s: float = TIMEOUT_S) -> None:
         raise RuntimeError(f'host_barrier {name!r}: {e}') from e
 
 
+def host_group():
+    """The gloo group of all ranks (host barriers and host-side sums);
+    None without a process group."""
+    return _STATE.get('host_group') if dist.is_initialized() else None
+
+
 def sync_global_moments(mean_sum, sq_sum, batch_num):
-    """All-reduce per-process normalisation moments to dataset-global
+    """All-reduce per-data-rank normalisation moments to dataset-global
     statistics.
 
-    Each process computes moments over its interval slice
+    Each data rank computes moments over its interval slice
     (:func:`a2m_torch.data.normalization.get_moments_necksub`); summing
-    ``(mean_sum, sq_sum, batch_num)`` across processes gives exactly the
+    ``(mean_sum, sq_sum, batch_num)`` across the data group (the ranks of
+    one model index: the others hold the same slices) gives exactly the
     one-process statistics (the reference's estimator is a plain sum over
-    batches).  The sums travel in float64 on the host group, once at
-    start."""
+    batches).  The sums travel in float64 on the host, once at start."""
     mean_sum = np.asarray(mean_sum, np.float64)
     sq_sum = np.asarray(sq_sum, np.float64)
     if not dist.is_initialized():
         return mean_sum, sq_sum, batch_num
     flat = torch.from_numpy(np.concatenate(
         [mean_sum.ravel(), sq_sum.ravel(), [float(batch_num)]]))
-    dist.all_reduce(flat, group=_STATE['host_group'])
+    from a2m_torch.parallel import mesh
+    grid = mesh.current_mesh()
+    dist.all_reduce(flat, group=_STATE['host_group'] if grid is None
+                    else grid.host_data_group)
     flat = flat.numpy()
     n = mean_sum.size
     return (flat[:n].reshape(mean_sum.shape),
@@ -240,6 +256,8 @@ def shutdown() -> None:
     down the group under it."""
     if not dist.is_initialized():
         return
+    from a2m_torch.parallel import mesh
     host_barrier('a2m_train_exit')
+    mesh.clear_mesh()
     dist.destroy_process_group()
     _STATE.clear()

@@ -16,7 +16,8 @@ Multi-process data-parallel training, one process per card: set
 ``A2M_COORDINATOR`` / ``A2M_NUM_PROCESSES`` / ``A2M_PROCESS_ID`` (or
 ``dist.*``) for each process, or launch with ``torchrun ... -m
 a2m_torch.train dist.auto=true``; ``data.batch_size`` is per process
-(:mod:`a2m_torch.parallel.launch`).  :func:`bootstrap` brings the group up
+(:mod:`a2m_torch.parallel.launch`).  Add ``mesh.model=2 mesh.data=-1`` for
+tensor parallelism over pairs of consecutive ranks (a2m's ``TP_RULES``).  :func:`bootstrap` brings the group up
 first; the loader then reads this rank's slice (``data.process_count=-1``
 unless the config pins one), and the ranks meet at a barrier before the
 group is destroyed at exit.
@@ -39,14 +40,17 @@ from a2m_torch.config import Config, apply_overrides, validate
 def bootstrap(cfg: Config, device='cuda', log=print) -> tuple[Config, str]:
     """Bring up the process group that ``cfg.dist`` or the environment
     asks for (:func:`~a2m_torch.parallel.launch.maybe_initialize`; nothing
-    in one process).  In a group, returns ``cfg`` with
-    ``data.process_count=-1`` when the config pins no slice, and this
-    rank's device (``cuda:<i>``) in place of ``cuda``, and logs the
-    ``[dist]`` line with the backend and the rank's device."""
-    from a2m_torch.parallel import launch
+    in one process) and its grid of ``cfg.mesh`` (validated;
+    :func:`~a2m_torch.parallel.mesh.make_mesh`), before any loader reads
+    its slice.  In a group, returns ``cfg`` with ``data.process_count=-1``
+    when the config pins no slice, and this rank's device (``cuda:<i>``)
+    in place of ``cuda``, and logs the ``[dist]`` line with the backend,
+    the rank's device and, with a model axis, its place in the grid."""
+    from a2m_torch.parallel import launch, mesh
     if not launch.maybe_initialize(cfg.dist, device):
         return cfg, device
     import torch.distributed as dist
+    grid = mesh.make_mesh(validate(cfg).mesh)
     if cfg.data.process_count is None and cfg.data.process_index is None:
         # -1: this rank and the world size
         cfg = dataclasses.replace(
@@ -54,8 +58,9 @@ def bootstrap(cfg: Config, device='cuda', log=print) -> tuple[Config, str]:
     rank_dev = launch.rank_device()
     if rank_dev.type == 'cuda':
         device = str(rank_dev)
+    place = '' if grid.model == 1 else f'; {grid}'
     log(f'[dist] process {dist.get_rank()}/{dist.get_world_size()} up: '
-        f'{launch.describe()}; trains on {device}')
+        f'{launch.describe()}; trains on {device}{place}')
     return cfg, device
 
 

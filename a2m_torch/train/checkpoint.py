@@ -20,7 +20,12 @@ reads the other's file.
 
 In a process group every rank enters each save, rank 0 alone writes, and
 all ranks meet at a barrier after it (a2m's ``loop.py:555-622``), so no rank
-reads or outlives a file that is not there yet; every rank restores.
+reads or outlives a file that is not there yet; every rank restores.  A
+model sharded by tensor parallelism (:func:`a2m_torch.parallel.mesh
+.shard_module`) is gathered first, its parameters, BatchNorm statistics
+and Adam moments, so that every file has the one-process layout, as a2m's
+orbax writes global arrays; a restore cuts each rank's slices out of it.
+A run resumes with or without a model axis whatever wrote the file.
 """
 
 from __future__ import annotations
@@ -72,20 +77,22 @@ class CheckpointManager:
         written beside its name and renamed.  In a process group rank 0
         writes and every rank returns after it has."""
         path = self.path(epoch)
+        # every rank takes part in gathering the slices of a sharded model
+        states = {}
+        for prefix, state in (('g', g_state), ('d', d_state)):
+            states[f'{prefix}_model'] = mesh.gather_state(state.model)
+            states[f'{prefix}_optimizer'] = mesh.gather_optimizer_state(
+                state.optimizer, state.model)
         if mesh.process_identity()[0] == 0:
-            self._write(path, epoch, g_state, d_state, controller_state,
-                        mean, std, extra)
+            self._write(path, epoch, states, controller_state, mean, std,
+                        extra)
         launch.host_barrier(f'a2m_ckpt_epoch_{epoch}')
         return path
 
-    def _write(self, path: Path, epoch: int, g_state, d_state,
+    def _write(self, path: Path, epoch: int, states: dict,
                controller_state: dict, mean, std, extra) -> None:
         payload = dict(
-            epoch=int(epoch),
-            g_model=g_state.model.state_dict(),
-            g_optimizer=g_state.optimizer.state_dict(),
-            d_model=d_state.model.state_dict(),
-            d_optimizer=d_state.optimizer.state_dict(),
+            epoch=int(epoch), **states,
             controller=controller_state,
             mean=torch.as_tensor(mean).detach().cpu(),
             std=torch.as_tensor(std).detach().cpu(),
@@ -114,29 +121,32 @@ class CheckpointManager:
                              weights_only=True)
         for state, prefix in ((g_state, 'g'), (d_state, 'd')):
             if state is not None:
-                state.model.load_state_dict(payload[f'{prefix}_model'])
-                state.optimizer.load_state_dict(
+                mesh.load_full_state(state.model, payload[f'{prefix}_model'])
+                mesh.load_full_optimizer_state(
+                    state.optimizer, state.model,
                     payload[f'{prefix}_optimizer'])
         return payload
 
     def save_best_generator(self, model: nn.Module, mean=None,
                             std=None) -> Path:
         """The best generator in a2m's packed format, with the pose
-        statistics it was trained with (rank 0 writes; every rank returns
-        after it has)."""
+        statistics it was trained with (gathered from every rank; rank 0
+        writes; every rank returns after it has)."""
         path = self.directory / 'best_gen.npz'
+        state = mesh.gather_state(model)
         if mesh.process_identity()[0] == 0:
-            save_best_generator_npz(model, path, mean, std)
+            save_best_generator_npz(model, path, mean, std, state=state)
         launch.host_barrier('a2m_ckpt_best_gen')
         return path
 
 
 def save_best_generator_npz(model: nn.Module, out_path, mean=None,
-                            std=None) -> Path:
+                            std=None, state: dict | None = None) -> Path:
     """Pack a generator (and the pose ``mean``/``std`` it was trained with)
     into one ``.npz`` in a2m's layout (``save_best_generator_npz``,
-    ``a2m/train/checkpoint.py:164-189``)."""
-    flat = to_jax_variables(model)
+    ``a2m/train/checkpoint.py:164-189``); ``state``, a whole
+    ``state_dict`` of it, replaces its own (a sharded model's, gathered)."""
+    flat = to_jax_variables(model, state)
     packed = {k: (v.astype(np.float16)
                   if k.startswith('params/') and v.dtype == np.float32
                   and np.abs(v).max(initial=0.0) < 6e4 else v)

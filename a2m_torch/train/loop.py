@@ -24,11 +24,16 @@ global batch (``parallel.mesh.global_batch``: gradients summed over the
 ranks, global metrics), so every rank's controller sees the same
 losses and takes the same branches; ``mean``/``std`` come from the ranks'
 summed moments (``launch.sync_global_moments``); parameters, buffers and
-statistics are broadcast from rank 0 once built, warm-started or resumed;
-the default generator is seeded with ``seed + rank`` (dropout differs
-across ranks, the label noise does not); only rank 0 logs
-(``A2M_DIST_DEBUG`` prefixes every rank's lines instead); every rank
-enters each save, rank 0 writes, and all meet at a barrier after.
+statistics are broadcast from rank 0 once built or warm-started; the
+default generator is seeded with ``seed + data rank`` (dropout differs
+across data ranks and is the same in the ranks of a model group, the label
+noise is the same everywhere); only rank 0 logs (``A2M_DIST_DEBUG``
+prefixes every rank's lines instead); every rank enters each save, rank 0
+writes, and all meet at a barrier after.  With a model axis
+(``mesh.model > 1``, :func:`a2m_torch.parallel.mesh.make_mesh`) the models
+are sharded under ``TP_RULES`` once broadcast, the optimisers are built
+over the slices, checkpoints are gathered to the one-process layout before
+rank 0 writes them, and a restore slices them again.
 
 Given a ``save_dir``, the trainer keeps its run there as a2m does:
 ``ckpt/epoch_<n>.pt`` every ``save_every_epochs`` epochs
@@ -95,14 +100,13 @@ class Trainer:
         self.rank, self.world = mesh.process_identity()
         self.log = _rank_log(log, self.rank, self.world)
         if dist.is_initialized():
-            torch.manual_seed(seed + self.rank)     # dropout, per rank
+            # dropout: per data rank, in step within a model group
+            torch.manual_seed(seed + mesh.data_identity()[0])
         #: what the style ids depend on (modules without a ``config`` get
         #: the defaults)
         self.g_config = getattr(g_model, 'config', GeneratorConfig())
         self.d_config = getattr(d_model, 'config', DiscriminatorConfig())
         self.controller = DynamicGANTraining(cfg.controller)
-        self.g_state, self.d_state = init_states(
-            g_model, d_model, cfg.controller.g_lr, cfg.controller.d_lr)
         self.g_step, self.d_step, self.eval_step = (
             steps or make_train_steps(g_model, d_model, cfg))
         if loader is not None:
@@ -130,8 +134,18 @@ class Trainer:
         #: the MFU line's numbers once logged: ms, flops and mfu by step
         self.mfu_report: dict[str, dict] = {}
         if cfg.init_from:
-            self._init_from(cfg.init_from)
+            self._init_from(cfg.init_from, g_model, d_model)
+        # built or warm-started alike on every rank; rank 0's values are
+        # the run's.  Then each rank keeps its slices (tensor parallelism),
+        # and the optimisers hold what the rank holds.
+        mesh.broadcast_state([*g_model.state_dict().values(),
+                              *d_model.state_dict().values()])
+        mesh.shard_module(g_model)
+        mesh.shard_module(d_model)
+        self.g_state, self.d_state = init_states(
+            g_model, d_model, cfg.controller.g_lr, cfg.controller.d_lr)
         if cfg.resume and self.ckpt is not None:
+            # every rank reads the same file, each its own slices
             restored = self.ckpt.restore(self.g_state, self.d_state)
             if restored is not None:
                 self.controller.load_state_dict(restored['controller'])
@@ -141,11 +155,7 @@ class Trainer:
                 self.loss_history = restored['extra'].get(
                     'loss_history', self.loss_history)
                 self.log(f'resumed from epoch {restored["epoch"]}')
-        # built, warm-started or resumed alike on every rank; rank 0's
-        # values are the run's
-        mesh.broadcast_state([*g_model.state_dict().values(),
-                              *d_model.state_dict().values(), self.mean,
-                              self.std])
+        mesh.broadcast_state([self.mean, self.std])
 
     @classmethod
     def from_config(cls, cfg: Config, loader, device='cuda', seed: int = 0,
@@ -166,6 +176,7 @@ class Trainer:
         from a2m_torch.models.discriminator import Discriminator
         from a2m_torch.models.generator import Generator
         cfg = validate(cfg)
+        mesh.make_mesh(cfg.mesh)            # None in one process
         dtype = torch_dtype(cfg.train.compute_dtype)
         dev = resolve_device(device)
         g_cfg = cfg.generator
@@ -182,7 +193,7 @@ class Trainer:
         return cls(g_model.to(dev), d_model.to(dev), cfg.train, seed=seed,
                    log=log, loader=loader, save_dir=cfg.train.save_dir)
 
-    def _init_from(self, path) -> None:
+    def _init_from(self, path, model, d_model) -> None:
         """Warm-start from a packed best-G ``.npz`` or a directory that
         holds ``best_gen.npz`` and, optionally, ``imported_disc.npz`` (the
         layout ``python -m a2m_torch.compat`` writes; a2m's
@@ -203,7 +214,6 @@ class Trainer:
         if best is None:
             raise FileNotFoundError(
                 f'train.init_from: no best_gen.npz under {p}')
-        model = self.g_state.model
         model.load_state_dict(from_jax_variables(best['variables'], model))
         loaded = 'G'
         if 'mean' in best:
@@ -212,7 +222,6 @@ class Trainer:
             loaded += '+stats'
         d_file = p / 'imported_disc.npz'
         if d_file.is_file():
-            d_model = self.d_state.model
             flat, _ = load_generator_npz(d_file)
             d_model.load_state_dict(from_jax_variables(flat, d_model))
             loaded += '+D'

@@ -33,8 +33,20 @@ batch, gradients summed over the ranks before clipping (so the norm is the
 global one) and Adam, the metrics summed over the ranks (every rank returns
 the global values), and the label noise drawn at the global batch's shape
 with each rank taking its own rows, so that every rank's labels are those
-rows of a one-process run's.  Dropout stays per rank (each rank's default
-generator; the trainer seeds it with ``seed + rank``).
+rows of a one-process run's.  Dropout stays per data rank (each rank's
+default generator; the trainer seeds it with ``seed + data rank``).
+
+Under tensor parallelism (a model sharded by
+:func:`a2m_torch.parallel.mesh.shard_module`) the global batch is the data
+group's, and the optimiser step's gradients take one more all-reduce, over
+the model group (``parallel.tensor.sum_partial_grads``): the replicated
+parameters each rank uses on its channel slice only (the sharded layers'
+biases and BatchNorm scales, the attention's value bias and gate) have a
+partial gradient on each rank and are summed; every other replicated one
+is whole, and bit-equal, on each rank and is left as it is (a sum would
+double it); a sliced parameter's gradient is its rank's own.  The global
+norm counts a sliced parameter's squares over the model group and a
+replicated one's once.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from a2m_torch.models.discriminator import aux_cross_entropy
 from a2m_torch.nn import masking
 from a2m_torch.nn.graph import GCNStack
 from a2m_torch.parallel import mesh
+from a2m_torch.parallel import tensor as tp_ops
 
 
 @dataclass
@@ -75,13 +88,27 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group['lr'] = float(lr)
 
 
-def clip_by_global_norm(params, max_norm: float) -> None:
+def clip_by_global_norm(params, max_norm: float, sliced=(),
+                        group=None) -> None:
     """optax's ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
-    place: scale by ``max_norm / norm`` only when ``norm > max_norm``."""
+    place: scale by ``max_norm / norm`` only when ``norm > max_norm``.
+    ``sliced`` are the parameters of ``params`` that each rank of the
+    model ``group`` holds a slice of: their squares are summed over the
+    group."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    if not sliced:
+        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    else:
+        import torch.distributed as dist
+        own = {id(p) for p in sliced}
+        parts = [(id(p) in own, (p.grad * p.grad).sum()) for p in params
+                 if p.grad is not None]
+        split = sum(sq for is_sliced, sq in parts if is_sliced)
+        dist.all_reduce(split, group=group)
+        norm = torch.sqrt(sum(sq for is_sliced, sq in parts
+                              if not is_sliced) + split)
     scale = torch.where(norm > max_norm, max_norm / norm,
                         torch.ones_like(norm))
     for g in grads:
@@ -214,8 +241,15 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
     def step_optimizer(state: NetState) -> None:
         params = list(state.model.parameters())
         mesh.all_reduce_grads(params)       # the global batch's gradient
+        plan = tp_ops.plan_of(state.model)
+        sliced, group = (), None
+        if plan is not None:
+            tp_ops.sum_partial_grads(state.model)
+            named = dict(state.model.named_parameters())
+            sliced = [p for k, p in named.items() if k in plan.state]
+            group = plan.shard.group
         if cfg.grad_clip_norm and cfg.grad_clip_norm > 0:
-            clip_by_global_norm(params, cfg.grad_clip_norm)
+            clip_by_global_norm(params, cfg.grad_clip_norm, sliced, group)
         state.optimizer.step()
 
     @mesh.global_batch()

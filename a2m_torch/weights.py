@@ -96,36 +96,51 @@ def from_jax_variables(flat: dict, model: nn.Module) -> dict:
     return out
 
 
-def to_jax_variables(model: nn.Module) -> dict[str, np.ndarray]:
-    """A port module's state -> flat a2m variables ``{'params/a/b/kernel':
-    array, 'batch_stats/a/b/mean': array}`` (f32 numpy), the inverse of
+def jax_key(model: nn.Module, name: str
+            ) -> tuple[str, tuple[int, ...] | None]:
+    """The a2m key of ``model``'s state entry ``name``
+    (``'params/a/b/kernel'``, ``'batch_stats/a/b/mean'``) and the axes that
+    take the port's layout to a2m's (a2m's value is the port's tensor
+    ``.transpose(axes)``; None: the same layout)."""
+    *scope, leaf = name.split('.')
+    module = model.get_submodule('.'.join(scope))
+    collection, axes = 'params', None
+    if isinstance(module, MaskedBatchNorm):
+        if leaf in ('running_mean', 'running_var'):
+            collection, leaf = 'batch_stats', leaf[len('running_'):]
+        elif leaf == 'weight':
+            leaf = 'scale'
+    elif isinstance(module, nn.LayerNorm):
+        leaf = 'scale' if leaf == 'weight' else leaf
+    elif isinstance(module, nn.Embedding):
+        leaf = 'embedding'
+    elif leaf == 'weight':
+        leaf = 'kernel'
+        if isinstance(module, (nn.Conv1d, nn.Conv2d)):
+            nd = module.weight.dim()
+            axes = (*range(2, nd), 1, 0)
+        elif isinstance(module, ConvTranspose1D):
+            axes = (2, 0, 1)
+        elif isinstance(module, nn.Linear):
+            axes = (1, 0)
+        else:
+            raise ValueError(f'no layout rule for the weight of '
+                             f'{type(module).__name__} ({name})')
+    return '/'.join([collection, *scope, leaf]), axes
+
+
+def to_jax_variables(model: nn.Module, state: dict | None = None
+                     ) -> dict[str, np.ndarray]:
+    """A port module's state (``state``, a whole ``state_dict`` of it, by
+    default its own) -> flat a2m variables ``{'params/a/b/kernel': array,
+    'batch_stats/a/b/mean': array}`` (f32 numpy), the inverse of
     :func:`from_jax_variables`."""
     out = {}
-    for name, tensor in model.state_dict().items():
-        *scope, leaf = name.split('.')
-        module = model.get_submodule('.'.join(scope))
+    state = model.state_dict() if state is None else state
+    for name, tensor in state.items():
+        key, axes = jax_key(model, name)
         value = tensor.detach().cpu().numpy().astype(np.float32)
-        collection = 'params'
-        if isinstance(module, MaskedBatchNorm):
-            if leaf in ('running_mean', 'running_var'):
-                collection, leaf = 'batch_stats', leaf[len('running_'):]
-            elif leaf == 'weight':
-                leaf = 'scale'
-        elif isinstance(module, nn.LayerNorm):
-            leaf = 'scale' if leaf == 'weight' else leaf
-        elif isinstance(module, nn.Embedding):
-            leaf = 'embedding'
-        elif leaf == 'weight':
-            leaf = 'kernel'
-            if isinstance(module, (nn.Conv1d, nn.Conv2d)):
-                value = value.transpose(*range(2, value.ndim), 1, 0)
-            elif isinstance(module, ConvTranspose1D):
-                value = value.transpose(2, 0, 1)
-            elif isinstance(module, nn.Linear):
-                value = value.T
-            else:
-                raise ValueError(f'no layout rule for the weight of '
-                                 f'{type(module).__name__} ({name})')
-        out['/'.join([collection, *scope, leaf])] = np.ascontiguousarray(
-            value)
+        if axes is not None:
+            value = value.transpose(axes)
+        out[key] = np.ascontiguousarray(value)
     return out

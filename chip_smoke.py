@@ -92,7 +92,7 @@ each fatal on failure:
    against bytes), the floor of the fp64 pipes an FFT runs on and the
    float64 ``torch.stft`` route; then 16 seeded intervals of 60 s written as
    wav files and read back through ``audio.io.wav_to_features`` (log-mel 512
-   on all, log-mel 400 with the kaiser_best resample on two), driven with
+   on all, log-mel 400 with the kaiser_best resample on one), driven with
    the counts set to 0 (K2x once per file, K2 never) and held to the plain
    version; then those features, paired with ``synthetic.synth_pose``
    tracks and cut by ``windowing.window_index``, as a ``Batcher`` of B = 128
@@ -138,7 +138,7 @@ each fatal on failure:
 13. multi-process data-parallel training (``a2m_torch/parallel/``): the
    det fixture of phase 11 with its dev and test intervals both to
    validate (each rank needs one of each split), phase 11's overrides with
-   dropout 0 (each rank draws its own dropout masks), 2 epochs of 4
+   dropout 0 (each rank draws its own dropout masks), 2 epochs of 2
    batches and 1 dev batch.  One process in this script at B = 128 on
    both ranks' batches concatenated, with cuDNN's deterministic
    algorithms; (a) one rank over NCCL in a child process of this script
@@ -214,11 +214,40 @@ each fatal on failure:
    ``config3_train_step(compute_dtype='bf16')``'s line with its launches;
    (e) each A14b encoder at a2m's default widths (B = 8, T = 64) on the
    card against the CPU in f32, 1e-4 of max|y|.  The phase's seconds, per
-   part, are printed.
+   part, are printed;
+16. tensor parallelism (``mesh.model=2``, a2m's ``TP_RULES``): two gloo
+   ranks on the one card (``--rank-worker`` child processes of this
+   script; NCCL refuses two ranks on one card) at 1 x 2 through
+   ``train.__main__.bootstrap``, the flagship G and a seeded D (gates
+   0.5, dropout 0) sharded by ``parallel.mesh.shard_module``.  Rank 0
+   takes the one-process references before the group is up.  A float64
+   ``g_step`` and ``d_step`` (B = 16, eager GCN layers, a clip that
+   bites) against one process: losses 1e-9, every gathered parameter,
+   BatchNorm statistic and Adam moment 1e-9 of its tensor's max (floored
+   at 1e-3 of its kind's largest) plus what Adam's first update makes of
+   the gradient's difference; f32 steps on the kernels (f32 GCN operands,
+   B = 64): the first pair against one process at a2m's own bounds for
+   its sharded steps (losses 1e-3, parameters max 2.1e-3, mean 2e-5),
+   beside one process on the batch's rows reversed, then (after a
+   barrier) two pairs timed a step and one with every collective timed
+   between synchronisations, an all-reduce of the replicated parameters'
+   size (what averaging their gradients would add), an ``eval_step`` and
+   a checkpoint save (gathered, rank 0 writes); the two ranks' metrics,
+   ``eval_step`` and every gathered tensor bit-equal (torch's
+   deterministic algorithms, on under a model axis), K3
+   and K4 x2 a G step and K1 x2 a D step and ``eval_step`` in each rank;
+   a bf16 pair whose loss gap to the f32 one-process pair lies within 2x
+   of the one-process bf16 gap, in mean and median; once the group is
+   down, the checkpoint loaded in one process equal to the gathered
+   state.  Per rank the bytes of its parameters and Adam moments against
+   one process's, ms per step and the collectives' share are printed, and
+   one process's f32 pairs with torch's deterministic algorithms on and
+   off (host clock, and the card's busy time from ``torch.profiler``).
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-``phase14_launches`` by part of phase 14 and ``phase15_launches`` by
-part of phase 15); the last line is ``{"ok": true, "device": {...}}``.
+``phase14_launches`` by part of phase 14, ``phase15_launches`` by part
+of phase 15 and ``phase16_launches_a_rank``); the last line is
+``{"ok": true, "device": {...}}``.
 Without a card it exits 1 and prints no result.
 """
 
@@ -260,6 +289,9 @@ SERVE_STREAMS, SERVE_SECONDS, SERVE_WINDOWS = 8, 60, 27
 # tolerance against its float64 plain version (a2m's exact-mode bound
 # against the float64 golden, tests/test_audio_frontend.py:16)
 DATA_INTERVALS, DATA_SECONDS, EXACT_TOL = 16, 60, 1e-5
+# the files of those read through log-mel 400 (its kaiser_best resample on
+# the host takes 22-29 s a file)
+DATA_400_FILES = 1
 # the harness against a2m's on the flagship (harness_golden.json): PCK and
 # L2 with f32 GCN operands, PCK with bf16 operands
 HARNESS_PCK_TOL, HARNESS_L2_RTOL, HARNESS_BF16_PCK_TOL = 2e-3, 1e-3, 1e-2
@@ -1560,9 +1592,10 @@ def exact_kernel_cases() -> dict:
 
 def extraction_phase() -> tuple[list, dict]:
     """``wav_to_features`` on DATA_INTERVALS seeded wav files of
-    DATA_SECONDS at 45.6 kHz (log-mel 512) and on two of them (log-mel 400,
-    kaiser_best resample to 16 kHz), with the counts set to 0: K2x once per
-    call, K2 never; each result against the plain version in float64."""
+    DATA_SECONDS at 45.6 kHz (log-mel 512) and on DATA_400_FILES of them
+    (log-mel 400, kaiser_best resample to 16 kHz), with the counts set to
+    0: K2x once per call, K2 never; each result against the plain version
+    in float64."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1586,7 +1619,8 @@ def extraction_phase() -> tuple[list, dict]:
             y, sr = audio_io.load_wav(path)
             return audio_io.resample(y, sr, 16000).astype(np.float32)
 
-        y16_jobs = [pool.submit(at_16k, path) for path in paths[:2]]
+        y16_jobs = [pool.submit(at_16k, path)
+                    for path in paths[:DATA_400_FILES]]
         mel_kernel.log_mel.launches = 0
         mel_kernel.log_mel.exact_launches = 0
         t0 = time.perf_counter()
@@ -1596,18 +1630,20 @@ def extraction_phase() -> tuple[list, dict]:
         t0 = time.perf_counter()
         feats400 = [audio_io.wav_to_features(path, 'log_mel_400',
                                              device='cuda')
-                    for path in paths[:2]]
+                    for path in paths[:DATA_400_FILES]]
         s400 = time.perf_counter() - t0
         launches = {'log_mel': mel_kernel.log_mel.launches,
                     'log_mel_exact': mel_kernel.log_mel.exact_launches}
         print(f'data: wav_to_features launches {launches}; log_mel_512 '
               f'{s512 / DATA_INTERVALS * 1e3:.1f} ms per {DATA_SECONDS} s '
-              f'file, log_mel_400 {s400 / 2 * 1e3:.1f} ms (kaiser_best '
-              f'resample on the host included), host clock', flush=True)
+              f'file, log_mel_400 {s400 / DATA_400_FILES * 1e3:.1f} ms '
+              f'(kaiser_best resample on the host included), host clock',
+              flush=True)
         require(launches == {'log_mel': 0,
-                             'log_mel_exact': DATA_INTERVALS + 2},
+                             'log_mel_exact': DATA_INTERVALS
+                             + DATA_400_FILES},
                 f'extraction launches {launches}, expected log_mel_exact '
-                f'{DATA_INTERVALS + 2} and log_mel 0')
+                f'{DATA_INTERVALS + DATA_400_FILES} and log_mel 0')
         errs = []
         for spec, got, ys in (
                 (frontend.spec_log_mel_512(SR), feats,
@@ -1630,7 +1666,7 @@ def extraction_phase() -> tuple[list, dict]:
     require(max(errs) <= EXACT_TOL, f'extracted features {max(errs)}')
     return feats, dict(launches=launches, max_abs_err=max(errs),
                        ms_per_file_512=s512 / DATA_INTERVALS * 1e3,
-                       ms_per_file_400=s400 / 2 * 1e3)
+                       ms_per_file_400=s400 / DATA_400_FILES * 1e3)
 
 
 def data_train_phase(feats: list) -> dict:
@@ -2253,9 +2289,10 @@ def export_phase(smi: str) -> dict:
 
 #: phase 13's run: the det fixture with its dev interval and its test
 #: interval both to validate (a rank needs an interval of each split),
-#: B = 64 a rank, 2 epochs of 4 batches and 1 dev batch
+#: B = 64 a rank, 2 epochs of 2 batches (which keeps the whole script
+#: inside half its time limit) and 1 dev batch
 DIST_BATCH, DIST_EPOCHS = 64, 2
-DIST_CAPS = {'train': 4, 'dev': 1}
+DIST_CAPS = {'train': 2, 'dev': 1}
 DIST_SPLITS = ('train', 'train', 'train', 'dev', 'dev')
 #: phase 11's run with dropout 0 (a rank draws its own dropout masks, which
 #: a one-process run cannot reproduce)
@@ -2579,10 +2616,14 @@ def rank_worker(spec: dict) -> int:
     return 0
 
 
-def start_ranks(world: int, spec: dict, tmp: Path) -> list[dict]:
+def start_ranks(world: int, spec: dict, tmp: Path,
+                tag: str = 'dist') -> list[dict]:
     """``world`` rank processes of this script, each running
-    :func:`rank_worker`; fails unless every one ends with 0 within
-    RANK_TIMEOUT_S.  Returns their results."""
+    :func:`rank_worker` (:func:`tp_rank_worker` when ``spec['tp']``), their
+    output in a log file each; fails unless every one ends with 0 within
+    RANK_TIMEOUT_S.  Once one fails the others are ended (they would wait
+    for it at their next collective).  Returns their results; their log
+    lines are printed under ``tag``."""
     import socket
     with socket.socket() as s:
         s.bind(('127.0.0.1', 0))
@@ -2590,34 +2631,37 @@ def start_ranks(world: int, spec: dict, tmp: Path) -> list[dict]:
     procs = []
     for rank in range(world):
         out = tmp / f'rank{rank}_of_{world}.json'
+        log = tmp / f'rank{rank}_of_{world}.log'
         env = dict(os.environ, A2M_COORDINATOR=f'127.0.0.1:{port}',
                    A2M_NUM_PROCESSES=str(world), A2M_PROCESS_ID=str(rank),
                    PYTHONPATH=str(ROOT))
-        procs.append((subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), '--rank-worker',
-             json.dumps(dict(spec, out=str(out)))],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), out))
-    logs = []
+        with open(log, 'w') as sink:
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 '--rank-worker', json.dumps(dict(spec, out=str(out)))],
+                cwd=ROOT, env=env, stdout=sink, stderr=subprocess.STDOUT),
+                out, log))
     deadline = time.monotonic() + RANK_TIMEOUT_S
     try:
-        for proc, _ in procs:
-            logs.append(proc.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))[0])
+        while (any(p.poll() is None for p, _, _ in procs)
+               and not any(p.poll() for p, _, _ in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
     finally:
-        for proc, _ in procs:
+        for proc, _, _ in procs:
             if proc.poll() is None:
                 proc.kill()
-                proc.communicate()
-    for rank, ((proc, out), log) in enumerate(zip(procs, logs)):
-        for line in log.splitlines():
+            proc.wait()
+    for rank, (proc, out, log) in enumerate(procs):
+        text = log.read_text(errors='replace')
+        for line in text.splitlines():
             if line.startswith(('[dist]', 'rank ', 'g_step:', 'd_step:',
                                 'throughput:', '[Validation]', 'resumed')):
-                print(f'dist: rank {rank}/{world}: {line}', flush=True)
+                print(f'{tag}: rank {rank}/{world}: {line}', flush=True)
         require(proc.returncode == 0 and out.is_file(),
                 f'rank {rank} of {world} failed (exit {proc.returncode}):\n'
-                f'{log[-4000:]}')
-    return [json.loads(out.read_text()) for _, out in procs]
+                f'{text[-4000:]}')
+    return [json.loads(out.read_text()) for _, out, _ in procs]
 
 
 def step_summary(steps: list[dict]) -> dict:
@@ -2657,11 +2701,10 @@ def run_difference(a: dict, b: dict) -> dict:
 
 
 def set_deterministic(on: bool) -> None:
-    """cuDNN's deterministic algorithms and torch's deterministic mode
-    (warning, not raising, where an operation has none)."""
-    import torch
-    torch.backends.cudnn.deterministic = on
-    torch.use_deterministic_algorithms(on, warn_only=True)
+    """torch's deterministic algorithms on or off, as a model axis runs
+    them (``a2m_torch.parallel.mesh.set_deterministic``)."""
+    from a2m_torch.parallel import mesh
+    mesh.set_deterministic(on)
 
 
 def one_process(cfg, tmp: Path, tag: str) -> dict:
@@ -3865,6 +3908,526 @@ def phase15_launches(bf16: dict) -> dict:
     return out
 
 
+# ---- phase 16: tensor parallelism --------------------------------------------
+
+#: phase 16: rows of the float64 probe and of the f32 / bf16 kernel steps
+#: (the same rows in both ranks: one data rank), and the f32 pairs of
+#: steps timed plain after the one held to one process
+TP_PROBE_BATCH, TP_BATCH, TP_PLAIN_PAIRS = 16, 64, 2
+#: pairs of one-process f32 steps timed with torch's deterministic
+#: algorithms and without
+TP_DET_PAIRS = 10
+#: the float64 probe against one process: of each tensor's max (floored at
+#: 1e-3 of its kind's largest); a parameter also within what Adam's first
+#: update, lr * g / (|g| + eps), makes of its gradient's difference
+TP_PROBE_TOL, TP_PROBE_FLOOR, ADAM_EPS = 1e-9, 1e-3, 1e-8
+TP_LR = {'g': 5e-4, 'd': 1e-3}
+#: the probe's global-norm clip, below the full-width steps' norms
+TP_CLIP = 1.0
+#: a2m's tolerances for its sharded steps against its unsharded ones
+#: (tests/test_parallel.py:144-157)
+TP_LOSS_REL, TP_PARAM_MAX, TP_PARAM_MEAN = 1e-3, 2.1e-3, 2e-5
+TP_OVERRIDES = ['mesh.model=2', 'mesh.data=-1']
+
+
+def tp_setup(dtype, n: int, clip: float = 0.0, reverse: bool = False):
+    """The flagship G (``artifacts/flagship_best_gen.npz``) and D from seed
+    0 with every attention gate at 0.5, dropout 0, in ``dtype`` (a compute
+    dtype, or ``torch.float64``: the models moved there, the GCN stacks
+    eager, as the kernels take f32; else the stacks on the kernels, with
+    f32 operands in an f32 model: with bf16 operands two runs whose inputs
+    differ in the last bit differ by ~1e-3 of the pose, the rounding ties
+    flip), sharded when a model axis is up, with Adam and the train steps,
+    and a seeded batch of ``n`` clips (the last wrap-padded; ``reverse``:
+    its rows in reverse order).  Returns (states, steps, batch)."""
+    import numpy as np
+    import torch
+    from a2m_torch.config import (DiscriminatorConfig, GeneratorConfig,
+                                  TrainConfig)
+    from a2m_torch.device import resolve_device
+    from a2m_torch.models.discriminator import Discriminator
+    from a2m_torch.models.generator import Generator
+    from a2m_torch.parallel import mesh
+    from a2m_torch.train.train_step import init_states, make_train_steps
+    from a2m_torch.weights import from_jax_variables, load_generator_npz
+    resolve_device('cuda')          # TF32 off, as the trainer runs
+    f64 = dtype == torch.float64
+    compute = torch.float32 if f64 else dtype
+    g = Generator(GeneratorConfig(dropout=0.0, fused_gcn=not f64,
+                                  fused_precise=dtype == torch.float32),
+                  dtype=compute)
+    g.load_state_dict(from_jax_variables(
+        load_generator_npz(ROOT / 'artifacts' / 'flagship_best_gen.npz')[0],
+        g))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        d = Discriminator(DiscriminatorConfig(dropout=0.0), dtype=compute)
+    with torch.no_grad():
+        for name, p in d.named_parameters():
+            if name.endswith('gamma'):
+                p.fill_(0.5)
+    g, d = ((g.double(), d.double()) if f64 else (g, d))
+    g, d = g.cuda(), d.cuda()
+    mesh.shard_module(g)
+    mesh.shard_module(d)
+    states = init_states(g, d)
+    steps = make_train_steps(g, d, TrainConfig(grad_clip_norm=clip,
+                                               fused_gcn_eval=not f64))
+    rng = np.random.default_rng(16)
+    t = torch.float64 if f64 else torch.float32
+    put = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to('cuda', t)
+    rows = slice(None, None, -1 if reverse else 1)
+    mask = np.ones(n, np.float32)
+    mask[-1] = 0
+    batch = (put(rng.standard_normal((n, 64, 128)).astype(np.float32)[rows]),
+             put((rng.standard_normal((n, 64, 104)) * 10
+                  + 300).astype(np.float32)[rows]),
+             put((rng.standard_normal(104) * 5).astype(np.float32)),
+             put(rng.uniform(5, 15, 104).astype(np.float32)),
+             put(mask[rows]))
+    return states, steps, batch
+
+
+def tp_pair(states, steps, batch, clock=None, noise: float = 0.0) -> dict:
+    """One ``g_step`` then one ``d_step`` (label noise ``noise``); with
+    ``clock`` (a list) each step's ms between synchronisations is appended.
+    Returns the metrics."""
+    import torch
+    audio, pose, mean, std, mask = batch
+    key = torch.Generator(device='cuda')
+    metrics = {}
+    for i, (step, labels) in enumerate(((steps[0], (0.95, noise)),
+                                        (steps[1], (0.95, 0.05, noise)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *_, m = step(*states, audio, pose, mean, std, *labels,
+                     key.manual_seed(1 + i), mask=mask)
+        torch.cuda.synchronize()
+        if clock is not None:
+            clock.append((time.perf_counter() - t0) * 1e3)
+        metrics.update({k: float(v) for k, v in m.items()})
+    return metrics
+
+
+def tp_gathered(states, moments: bool = True) -> dict:
+    """Both nets' state (and Adam moments) in the one-process layout, on
+    the host: ``'<net>/<key>'`` and ``'<net>/adam/<param>/<moment>'``."""
+    from a2m_torch.parallel import mesh
+    out = {}
+    for net, state in zip('gd', states):
+        model = state.model
+        out.update({f'{net}/{k}': v.detach().cpu() for k, v in
+                    mesh.gather_state(model).items()})
+        if not moments:
+            continue
+        names = [k for k, _ in model.named_parameters()]
+        adam = mesh.gather_optimizer_state(state.optimizer, model)['state']
+        for i, entry in adam.items():
+            out.update({f'{net}/adam/{names[i]}/{k}': v.detach().cpu()
+                        for k, v in entry.items() if k != 'step'})
+    return out
+
+
+def tp_probe_error(got: dict, ref: dict) -> tuple[float, str]:
+    """The worst tensor of the float64 probe against one process, as a
+    share of its tolerance (<= 1 passes; see TP_PROBE_TOL)."""
+    kinds: dict = {}
+    for k in ref:
+        kind = k.rsplit('/', 1)[1] if '/adam/' in k else 'state'
+        kinds.setdefault((k[0], kind), []).append(k)
+    worst, name = 0.0, ''
+    for (net, kind), keys in kinds.items():
+        floor = TP_PROBE_FLOOR * max(float(ref[k].abs().max()) for k in keys)
+        for k in keys:
+            err = (got[k].double() - ref[k].double()).abs()
+            tol = TP_PROBE_TOL * max(float(ref[k].abs().max()), floor)
+            m = f'{net}/adam/{k[2:]}/exp_avg'
+            if kind == 'state' and m in ref:
+                # Adam's b1 = 0.9: exp_avg is 0.1 g after one step
+                dg = (got[m].double() - ref[m].double()).abs() / 0.1
+                tol = tol + TP_LR[net] * dg / ADAM_EPS
+            share = float((err / tol).max()) if err.numel() else 0.0
+            if share > worst:
+                worst, name = share, k
+    return worst, name
+
+
+def tp_param_diff(got: dict, ref: dict) -> dict:
+    """a2m's measure for its sharded steps: max and mean |delta| over every
+    parameter of both nets; per net the same, and the share of elements
+    that moved over half a learning rate apart (Adam's first update is
+    +-lr where a gradient's sign flips), with the tensors most lie in."""
+    import torch
+    out, every = {}, []
+    for net in ('g', 'd'):
+        diffs, flipped = [], {}
+        for k in ref:
+            if (k.startswith(net + '/') and '/adam/' not in k
+                    and not k.endswith(('running_mean', 'running_var'))):
+                d = (got[k].double() - ref[k].double()).abs().flatten()
+                diffs.append(d)
+                flipped[k] = int((d > TP_LR[net] / 2).sum())
+        flat = torch.cat(diffs)
+        every.append(flat)
+        top = sorted(flipped.items(), key=lambda kv: -kv[1])[:4]
+        out[net] = dict(max=float(flat.max()), mean=float(flat.mean()),
+                        flipped=float((flat > TP_LR[net] / 2).double()
+                                      .mean()),
+                        flipped_in={k: n for k, n in top if n})
+    flat = torch.cat(every)
+    out.update(max=float(flat.max()), mean=float(flat.mean()))
+    return out
+
+
+def tp_references() -> dict:
+    """One process (rank 0 before the group is up): the float64 probe's
+    metrics, gathered state and Adam moments; the f32 kernel pair's
+    metrics and parameters; the bf16 pair's metrics."""
+    import torch
+    ref = {}
+    states, steps, batch = tp_setup(torch.float64, TP_PROBE_BATCH, TP_CLIP)
+    ref['probe'] = (tp_pair(states, steps, batch, noise=0.01),
+                    tp_gathered(states))
+    states, steps, batch = tp_setup(torch.float32, TP_BATCH)
+    ref['f32'] = (tp_pair(states, steps, batch), tp_gathered(states))
+    # what torch's deterministic algorithms (cuDNN's among them), which a
+    # model axis turns on, cost a pair here: off and on in turn, past one
+    # pair of each
+    ref['determinism'] = {False: [], True: []}
+    for i, on in enumerate((False, True) * (TP_DET_PAIRS + 1)):
+        set_deterministic(on)
+        tp_pair(states, steps, batch,
+                ref['determinism'][on] if i >= 2 else None)
+    # and the card's busy time in a pair (the steps wait on the host)
+    from a2m_torch.utils.profiling import kernel_breakdown
+    ref['determinism_kernels'] = {}
+    for on in (False, True):
+        set_deterministic(on)
+        prof = kernel_breakdown(lambda: tp_pair(states, steps, batch), 2)
+        ref['determinism_kernels'][on] = dict(
+            kernel_ms=prof['kernel_ms'],
+            convolution_ms=prof['categories_ms'].get('convolution', 0.0))
+    set_deterministic(False)
+    # the same step on the batch's rows in reverse order: how far two
+    # correct f32 computations of it lie apart
+    states, steps, batch = tp_setup(torch.float32, TP_BATCH, reverse=True)
+    tp_pair(states, steps, batch)
+    ref['f32_reversed'] = tp_param_diff(tp_gathered(states, moments=False),
+                                        ref['f32'][1])
+    states, steps, batch = tp_setup(torch.bfloat16, TP_BATCH)
+    ref['bf16'] = tp_pair(states, steps, batch)
+    del states, steps, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_bytes(states) -> int:
+    """Bytes of the parameters and Adam moments this process holds."""
+    total = 0
+    for state in states:
+        for p in state.model.parameters():
+            total += p.numel() * p.element_size()
+        for entry in state.optimizer.state_dict()['state'].values():
+            total += sum(v.numel() * v.element_size()
+                         for k, v in entry.items() if k != 'step')
+    return total
+
+
+def tp_rank_worker(spec: dict) -> int:
+    """One rank of phase 16, started by :func:`tp_phase`: rank 0 takes the
+    one-process references before the group is up (rank 1 waits at the
+    rendezvous), then both ranks run ``mesh.model=2`` through the
+    bootstrap: the float64 probe; the f32 kernel steps (the first pair
+    against one process, TP_PLAIN_PAIRS timed a step, one with every
+    collective timed between synchronisations), one ``eval_step``, one
+    checkpoint save; the bf16 pair.  Rank 0 holds each to its reference
+    and, once the group is down, loads the checkpoint in one process.
+    Writes its results to ``spec['out']`` as JSON."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from a2m_torch.config import Config, apply_overrides
+    from a2m_torch.parallel import launch
+    from a2m_torch.parallel import tensor as tp_ops
+    from a2m_torch.train import __main__ as train_main
+    from a2m_torch.train import checkpoint as ckpt_lib
+
+    def log(line: str) -> None:
+        print(line, flush=True)
+
+    t_start = time.perf_counter()
+    first = os.environ['A2M_PROCESS_ID'] == '0'
+    ref = tp_references() if first else None
+    cfg = apply_overrides(Config(), spec['overrides'])
+    train_main.bootstrap(cfg, 'cuda', log=log)
+    rank = dist.get_rank()
+    out = dict(rank=rank, backend=dist.get_backend(),
+               device=str(torch.cuda.current_device()))
+
+    # ---- the float64 probe: the sharding's plumbing --------------------------
+    states, steps, batch = tp_setup(torch.float64, TP_PROBE_BATCH, TP_CLIP)
+    metrics = tp_pair(states, steps, batch, noise=0.01)
+    got = tp_gathered(states)
+    if first:
+        ref_metrics, ref_state = ref.pop('probe')
+        worst, name = tp_probe_error(got, ref_state)
+        out['probe'] = dict(
+            worst_share=worst, worst_name=name, tensors=len(ref_state),
+            metric_rel=max(abs(metrics[k] - v) / abs(v)
+                           for k, v in ref_metrics.items()))
+        log(f'rank 0: float64 probe against one process {out["probe"]}')
+        require(worst <= 1.0 and out['probe']['metric_rel'] <= TP_PROBE_TOL,
+                f'the sharded float64 step against one process: '
+                f'{out["probe"]}')
+    del states, steps, batch, got
+
+    # ---- the f32 kernel steps ----------------------------------------------
+    states, steps, batch = tp_setup(torch.float32, TP_BATCH)
+    reset_kernel_launches()
+    metrics = tp_pair(states, steps, batch)
+    params = tp_gathered(states, moments=False)     # every rank takes part
+    if first:
+        ref_metrics, ref_params = ref.pop('f32')
+        out['f32'] = dict(
+            loss_rel=max(abs(metrics[k] - ref_metrics[k]) / abs(ref_metrics[k])
+                         for k in ('g_loss', 'd_loss')),
+            metric_rel={k: abs(metrics[k] - v) / abs(v)
+                        for k, v in ref_metrics.items()},
+            **tp_param_diff(params, ref_params))
+        out['f32_reference'] = ref_metrics
+        out['f32_reversed'] = ref.pop('f32_reversed')
+        out['determinism'] = {
+            on: [a + b for a, b in zip(ms[0::2], ms[1::2])]
+            for on, ms in ref.pop('determinism').items()}
+        out['determinism_kernels'] = ref.pop('determinism_kernels')
+        log(f'rank 0: f32 kernel steps against one process {out["f32"]}; '
+            f'one process on the reversed rows against the same '
+            f'{out["f32_reversed"]}')
+        require(out['f32']['loss_rel'] <= TP_LOSS_REL
+                and out['f32']['max'] < TP_PARAM_MAX
+                and out['f32']['mean'] < TP_PARAM_MEAN,
+                f'the sharded f32 steps against one process: {out["f32"]} '
+                f'(a2m: losses {TP_LOSS_REL}, parameters max '
+                f'{TP_PARAM_MAX}, mean {TP_PARAM_MEAN})')
+    del params
+    out['pair_metrics'] = [metrics]
+    # rank 0 has held the pair to one process meanwhile: the timed pairs
+    # start together
+    torch.cuda.synchronize()
+    dist.barrier()
+    plain: list[float] = []
+    for _ in range(TP_PLAIN_PAIRS):
+        out['pair_metrics'].append(tp_pair(states, steps, batch, plain))
+    # every collective, and the model group's partial-gradient all-reduce
+    # alone, between two synchronisations
+    wrapped = {(dist, name): getattr(dist, name) for name in
+               ('all_reduce', 'all_gather', 'reduce_scatter_tensor')}
+    wrapped[tp_ops, 'sum_partial_grads'] = tp_ops.sum_partial_grads
+    spent = dict(ms=0.0, n=0, partial_ms=0.0)
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += (time.perf_counter() - t0) * 1e3
+            if key == 'ms':
+                spent['n'] += 1
+            return result
+        return wrapper
+
+    timed_ms: list[float] = []
+    for (owner, name), fn in wrapped.items():
+        setattr(owner, name, timed(fn, 'partial_ms' if owner is tp_ops
+                                   else 'ms'))
+    try:
+        tp_pair(states, steps, batch, timed_ms)
+    finally:
+        for (owner, name), fn in wrapped.items():
+            setattr(owner, name, fn)
+    # what a pair would add if the model group averaged the replicated
+    # gradients instead of computing them alike: an all-reduce of each
+    # net's replicated parameters
+    replicated = [sum(p.numel() for k, p in s.model.named_parameters()
+                      if k not in tp_ops.plan_of(s.model).state)
+                  for s in states]
+    group = tp_ops.plan_of(states[0].model).shard.group
+    average_ms = 0.0
+    for n in replicated:
+        buf = torch.ones(n, device='cuda')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+        average_ms += (time.perf_counter() - t0) * 1e3
+    del buf
+    audio, pose, mean, std, mask = batch
+    val = steps[2](*states, audio, pose, mean, std, mask)
+    torch.cuda.synchronize()
+    out['launches'] = kernel_launches()
+    out['eval'] = {k: float(v) for k, v in val.items()}
+    require(bool(np.isfinite(list(out['eval'].values())).all()),
+            f'rank {rank}: eval_step {out["eval"]}')
+    out.update(step_ms=plain, timed_ms=timed_ms, collective_ms=spent['ms'],
+               collectives=spent['n'], partial_ms=spent['partial_ms'],
+               average_ms=average_ms, replicated=sum(replicated),
+               bytes=tp_bytes(states))
+    gathered = tp_gathered(states)
+    import hashlib
+    out['digest'] = {k: hashlib.sha1(v.numpy().tobytes()).hexdigest()
+                     for k, v in gathered.items()}
+    out['one_process_bytes'] = sum(
+        v.numel() * v.element_size() for k, v in gathered.items()
+        if not k.endswith(('running_mean', 'running_var')))
+    manager = ckpt_lib.CheckpointManager(Path(spec['ckpt']))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager.save(0, *states, {}, mean, std)
+    out['save_ms'] = (time.perf_counter() - t0) * 1e3
+    del states, steps, batch
+    torch.cuda.empty_cache()
+
+    # ---- bf16 in a process group --------------------------------------------
+    states, steps, batch = tp_setup(torch.bfloat16, TP_BATCH)
+    out['bf16_metrics'] = tp_pair(states, steps, batch)
+    del states, steps, batch
+    if first:
+        keys = sorted(ref['bf16'])
+        f32 = np.array([out['f32_reference'][k] for k in keys])
+        gap = np.abs(np.array([ref['bf16'][k] for k in keys]) - f32)
+        d = np.abs(np.array([out['bf16_metrics'][k] for k in keys]) - f32)
+        out['bf16'] = dict(mean=float(d.mean()), gap_mean=float(gap.mean()),
+                           median=float(np.median(d)),
+                           gap_median=float(np.median(gap)), n=len(keys))
+        log(f'rank 0: bf16 pair in the group against the f32 one-process '
+            f'pair {out["bf16"]}')
+        require(0 < gap.mean() and d.mean() <= 2 * gap.mean()
+                and np.median(d) <= 2 * np.median(gap),
+                f'the sharded bf16 steps\' loss gap {out["bf16"]}: above 2x '
+                f'the one-process bf16 gap')
+    launch.shutdown()
+
+    # ---- the checkpoint in one process ---------------------------------------
+    if first:
+        states, _, _ = tp_setup(torch.float32, 1)
+        manager.restore(*states)
+        loaded = tp_gathered(states)
+        same = [k for k in gathered if not torch.equal(loaded[k],
+                                                       gathered[k])]
+        out['checkpoint'] = dict(tensors=len(gathered), differ=len(same))
+        log(f'rank 0: the checkpoint in one process {out["checkpoint"]}')
+        require(loaded.keys() == gathered.keys() and not same,
+                f'the gathered checkpoint in one process differs: {same[:5]}')
+    out['total_s'] = time.perf_counter() - t_start
+    Path(spec['out']).write_text(json.dumps(out))
+    return 0
+
+
+def tp_phase(smi: str) -> dict:
+    """Phase 16: tensor parallelism, ``mesh.model=2`` over two gloo ranks
+    on the one card (NCCL refuses two ranks on one card)."""
+    import statistics
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        tmp = Path(tmp)
+        ranks = start_ranks(2, dict(tp=True, overrides=TP_OVERRIDES,
+                                    ckpt=str(tmp / 'ckpt')), tmp, tag='tp')
+    r0, r1 = ranks
+    require(r0['backend'] == r1['backend'] == 'gloo',
+            f'backends {r0["backend"]}, {r1["backend"]}')
+    pairs = 2 + TP_PLAIN_PAIRS
+    expected = {'log_mel': 0, 'log_mel_exact': 0, 'gcn_stack': 2 * pairs + 2,
+                'gcn_stack_fwd': 2 * pairs, 'gcn_stack_bwd': 2 * pairs,
+                'gcn_stack_edge': 0}
+    for r in ranks:
+        require(r['launches'] == expected,
+                f'rank {r["rank"]}: launches {r["launches"]}: expected K3 '
+                f'and K4 x2 per G step, K1 x2 per D step and eval_step')
+    differ = dict(
+        pairs=sum(a != b for a, b in zip(r0['pair_metrics'],
+                                         r1['pair_metrics'])),
+        eval=int(r0['eval'] != r1['eval']),
+        state=sum(r0['digest'][k] != r1['digest'][k] for k in r0['digest']))
+    print(f'tp: the two model ranks after {2 + TP_PLAIN_PAIRS} pairs: '
+          f'metrics, eval_step and every tensor (parameters, BatchNorm '
+          f'statistics, Adam moments; {len(r0["digest"])}) differ in '
+          f'{differ}', flush=True)
+    require(not any(differ.values()),
+            f'the model ranks\' replicated state parts: {differ}')
+    det = {on: r0['determinism'][str(on).lower()] for on in (False, True)}
+    busy = {on: r0['determinism_kernels'][str(on).lower()]
+            for on in (False, True)}
+    quartiles = {on: statistics.quantiles(ms, n=4) for on, ms in det.items()}
+    print(f'tp: one process, f32 pairs at B = {TP_BATCH}, torch\'s '
+          f'deterministic algorithms off / on: host clock (synchronised) '
+          f'median {statistics.median(det[False]):.1f} / '
+          f'{statistics.median(det[True]):.1f} ms of {TP_DET_PAIRS}, '
+          f'quartiles {quartiles[False][0]:.1f}-{quartiles[False][2]:.1f} / '
+          f'{quartiles[True][0]:.1f}-{quartiles[True][2]:.1f} ms '
+          f'({det[False]} / {det[True]}); the card busy '
+          f'{busy[False]["kernel_ms"]:.2f} / {busy[True]["kernel_ms"]:.2f} '
+          f'ms a pair, in convolutions {busy[False]["convolution_ms"]:.2f} / '
+          f'{busy[True]["convolution_ms"]:.2f} ms (torch.profiler, 2 pairs '
+          f'each); {smi}', flush=True)
+    out = dict(probe=r0['probe'], f32=r0['f32'], determinism=det,
+               determinism_kernels=busy,
+               f32_reversed=r0['f32_reversed'], bf16=r0['bf16'],
+               checkpoint=r0['checkpoint'], launches=r0['launches'],
+               ranks=[])
+    for r in ranks:
+        g_ms = statistics.median(r['step_ms'][0::2])
+        d_ms = statistics.median(r['step_ms'][1::2])
+        timed = sum(r['timed_ms'])
+        share = r['collective_ms'] / timed
+        out['ranks'].append(dict(
+            rank=r['rank'], bytes=r['bytes'],
+            one_process_bytes=r['one_process_bytes'], step_ms=r['step_ms'],
+            g_step_ms=g_ms, d_step_ms=d_ms, timed_pair_ms=timed,
+            collective_ms=r['collective_ms'], collectives=r['collectives'],
+            collective_share=share, partial_ms=r['partial_ms'],
+            average_ms=r['average_ms'], replicated=r['replicated'],
+            save_ms=r['save_ms'],
+            total_s=r['total_s']))
+        print(f'tp: rank {r["rank"]}/2: parameters + Adam '
+              f'{r["bytes"] / 2**20:.1f} MiB against one process\'s '
+              f'{r["one_process_bytes"] / 2**20:.1f} MiB; median g_step '
+              f'{g_ms:.1f} ms, d_step {d_ms:.1f} ms of {TP_PLAIN_PAIRS} each '
+              f'(f32, B = {TP_BATCH}, host clock, synchronised); a pair with '
+              f'its collectives timed '
+              f'{timed:.1f} ms, {r["collective_ms"]:.1f} ms in '
+              f'{r["collectives"]} collectives ({share:.0%}), of them the '
+              f'model group\'s partial-gradient all-reduce '
+              f'{r["partial_ms"]:.1f} ms (averaging the '
+              f'{r["replicated"] / 1e6:.1f}M replicated gradients instead: '
+              f'{r["average_ms"]:.1f} ms more); '
+              f'checkpoint save '
+              f'{r["save_ms"]:.1f} ms; launches {r["launches"]}; {smi}',
+              flush=True)
+    f32, rev = r0['f32'], r0['f32_reversed']
+    print(f'tp: gates: float64 probe worst {r0["probe"]["worst_share"]:.3f} '
+          f'of its tolerance, losses {r0["probe"]["metric_rel"]:.1e} '
+          f'(tol {TP_PROBE_TOL:g}); f32 kernel steps losses '
+          f'{f32["loss_rel"]:.2e} (tol {TP_LOSS_REL:g}), parameters max '
+          f'{f32["max"]:.3e} mean {f32["mean"]:.3e} (a2m\'s {TP_PARAM_MAX:g}, '
+          f'{TP_PARAM_MEAN:g}; one process on the batch\'s rows reversed: '
+          f'max {rev["max"]:.3e} mean {rev["mean"]:.3e}); bf16 loss gap mean '
+          f'{r0["bf16"]["mean"]:.3e} median {r0["bf16"]["median"]:.3e} '
+          f'against the one-process bf16 gap {r0["bf16"]["gap_mean"]:.3e}, '
+          f'{r0["bf16"]["gap_median"]:.3e} (2x allowed); checkpoint '
+          f'{r0["checkpoint"]}; {smi}', flush=True)
+    out['total_s'] = time.perf_counter() - t_phase
+    print(f'tp: phase {out["total_s"]:.1f} s', flush=True)
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3912,6 +4475,8 @@ def main() -> int:
     bf16 = bf16_phase(smi)
     print(json.dumps({'bf16': bf16, 'device': smi}))
     p15 = phase15_launches(bf16)
+    tp = tp_phase(smi)
+    print(json.dumps({'tp': tp, 'device': smi}))
     artifact_launches = {name: a['launches']
                          for name, a in exp['artifacts'].items()}
     stack = dict(route='cuda', library_ms=None)
@@ -3950,9 +4515,10 @@ def main() -> int:
     for k in kernels:
         k['phase14_launches'] = p14[k['name']]
         k['phase15_launches'] = p15[k['name']]
+        k['phase16_launches_a_rank'] = tp['launches'][k['name']]
     print(f'chip_smoke: phase 14 {migrate["total_s"]:.1f} s, phase 15 '
-          f'{bf16["total_s"]:.1f} s, the whole script '
-          f'{time.perf_counter() - t_script:.1f} s', flush=True)
+          f'{bf16["total_s"]:.1f} s, phase 16 {tp["total_s"]:.1f} s, the '
+          f'whole script {time.perf_counter() - t_script:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -3962,5 +4528,7 @@ def main() -> int:
 
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--rank-worker']:
-        sys.exit(rank_worker(json.loads(sys.argv[2])))
+        spec = json.loads(sys.argv[2])
+        sys.exit(tp_rank_worker(spec) if spec.get('tp')
+                 else rank_worker(spec))
     sys.exit(main())
