@@ -1,0 +1,10 @@
+"""k2_roofline.serve: the share of its roofline of K2 (the log-mel): the
+least time of its launches in the traced window (the yardstick's
+operations and bytes at the card's peaks) over their device time."""
+
+
+def read(run):
+    t = run.trace
+    spent = t.category_s.get('log_mel', 0.0)
+    bound = t.work.get('bound_s.k2', 0.0)
+    return 100.0 * bound / spent if spent > 0 and bound > 0 else None

@@ -1,0 +1,8 @@
+"""mfu.serve: the operations of the measured window's calls over the
+configuration's published peak times the window's wall: the whole
+call's share of the card."""
+
+
+def read(run):
+    w = run.window
+    return 100.0 * w.work['flops'] / (run.peak_flops * w.seconds)
