@@ -27,6 +27,7 @@ import torch
 
 from a2m_torch import constants
 from a2m_torch.audio import frontend
+from a2m_torch.utils.profiling import trace_annotation
 
 
 def _device_of(generator: torch.nn.Module) -> torch.device:
@@ -305,21 +306,27 @@ def _fused_pipeline(generator, sr: int, method: str, n_samples: int,
 
     def run(waves: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            waves = _decode_wire(waves, encoding)
-            if framed:   # (S, T, frame_len) pre-framed wire
-                if waves.shape[-2] != t:
-                    raise ValueError(
-                        f'framed wire: {waves.shape[-2]} frames per stream, '
-                        f'but {n_samples} samples give {t} (framed_n_samples '
-                        f'must be the original per-stream sample count)')
-                feats = frontend.log_mel_frames(waves, spec, exact=False)
-            else:
-                feats = frontend.log_mel(waves, spec, exact=False)
-            wins = feats[:, idx]                     # (S, W, window, n_mels)
-            s, w_n = wins.shape[:2]
-            pred = generator(wins.reshape(s * w_n, window, feats.shape[-1]))
-            flat = pred.reshape(s, w_n * window, pred.shape[-1])
-            return torch.matmul(blend_m, flat)           # (S, T, 104)
+            with trace_annotation('a2m.serve.frontend'):
+                waves = _decode_wire(waves, encoding)
+                if framed:   # (S, T, frame_len) pre-framed wire
+                    if waves.shape[-2] != t:
+                        raise ValueError(
+                            f'framed wire: {waves.shape[-2]} frames per '
+                            f'stream, but {n_samples} samples give {t} '
+                            f'(framed_n_samples must be the original '
+                            f'per-stream sample count)')
+                    feats = frontend.log_mel_frames(waves, spec, exact=False)
+                else:
+                    feats = frontend.log_mel(waves, spec, exact=False)
+            with trace_annotation('a2m.serve.gather'):
+                wins = feats[:, idx]                 # (S, W, window, n_mels)
+                s, w_n = wins.shape[:2]
+                wins = wins.reshape(s * w_n, window, feats.shape[-1])
+            with trace_annotation('a2m.serve.generator'):
+                pred = generator(wins)
+            with trace_annotation('a2m.serve.blend'):
+                flat = pred.reshape(s, w_n * window, pred.shape[-1])
+                return torch.matmul(blend_m, flat)       # (S, T, 104)
 
     return run
 
@@ -353,35 +360,40 @@ def _upload(stack, dev: torch.device, overlap: bool = False):
     card does not block the host.  With ``overlap`` the copy runs on the
     device's side stream and the event marks its end: the consumer's stream
     waits for it before the first use.  (The tensor itself belongs to the
-    consumer's stream, so its memory is reused like any other's.)"""
+    consumer's stream, so its memory is reused like any other's.)  The
+    stacking, with the host buffer's allocation, is the span
+    ``a2m.serve.stage``; issuing the copy, ``a2m.serve.upload``."""
     first = stack[0]
-    if isinstance(first, torch.Tensor) and first.device.type != 'cpu':
-        return torch.stack(list(stack)).to(dev), None
     pinned = dev.type == 'cuda'
-    if isinstance(first, torch.Tensor):
-        host = torch.empty((len(stack), *first.shape), dtype=first.dtype,
-                           pin_memory=pinned)
-        torch.stack(list(stack), out=host)
-    else:
-        arrays = [np.asarray(w) for w in stack]
-        host = torch.empty((len(arrays), *arrays[0].shape),
-                           dtype=torch.from_numpy(arrays[0][:0]).dtype,
-                           pin_memory=pinned)
-        np.stack(arrays, out=host.numpy())
-    if not pinned:
-        return host.to(dev), None
-    if not overlap:
-        return host.to(dev, non_blocking=True), None
-    side = _copy_stream(dev)
-    out = torch.empty(host.shape, dtype=host.dtype, device=dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        out.copy_(host, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(side)
-    return out, ready
+    with trace_annotation('a2m.serve.stage'):
+        if isinstance(first, torch.Tensor) and first.device.type != 'cpu':
+            return torch.stack(list(stack)).to(dev), None
+        if isinstance(first, torch.Tensor):
+            host = torch.empty((len(stack), *first.shape), dtype=first.dtype,
+                               pin_memory=pinned)
+            torch.stack(list(stack), out=host)
+        else:
+            arrays = [np.asarray(w) for w in stack]
+            host = torch.empty((len(arrays), *arrays[0].shape),
+                               dtype=torch.from_numpy(arrays[0][:0]).dtype,
+                               pin_memory=pinned)
+            np.stack(arrays, out=host.numpy())
+    with trace_annotation('a2m.serve.upload'):
+        if not pinned:
+            return host.to(dev), None
+        if not overlap:
+            return host.to(dev, non_blocking=True), None
+        side = _copy_stream(dev)
+        out = torch.empty(host.shape, dtype=host.dtype, device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            out.copy_(host, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return out, ready
 
 
+@trace_annotation('a2m.serve')
 def stream_from_waveforms(generator, waveforms, sr: int,
                           method: str = 'log_mel_512', hop: int = 32,
                           batch_size: int = 64,
@@ -411,7 +423,13 @@ def stream_from_waveforms(generator, waveforms, sr: int,
     ``framed_n_samples=N``: the streams are pre-framed (T, frame_len) wire
     arrays from :func:`frame_streams_for_wire` for original N-sample
     streams: 1.5x fewer host->device bytes, same features.  A stack whose T
-    is not the frame count of N samples raises ``ValueError``."""
+    is not the frame count of N samples raises ``ValueError``.
+
+    The call is the span ``a2m.serve``.  On the fused path its stages are
+    spans below it, one level deep: ``a2m.serve.stage`` and
+    ``a2m.serve.upload`` per group, then per group ``.frontend``,
+    ``.gather``, ``.generator`` and ``.blend``, and ``.download`` (where
+    the host waits for the card).  The chunked route has the root only."""
     window = constants.FRAMES_PER_WINDOW
     dev = _device_of(generator)
     if framed_n_samples is not None:
@@ -456,7 +474,8 @@ def stream_from_waveforms(generator, waveforms, sr: int,
             if ready is not None:
                 torch.cuda.current_stream(dev).wait_event(ready)
             outs.append(run(st))
-        return [p for o in outs for p in o.cpu().numpy()]
+        with trace_annotation('a2m.serve.download'):
+            return [p for o in outs for p in o.cpu().numpy()]
     if encoding != 'linear':
         raise ValueError('non-linear wire encodings are decoded in the '
                          'fused pipeline; equal-length streams required')

@@ -38,6 +38,7 @@ from a2m_torch.constants import AUDIO_FS_MAP, FRAMES_PER_WINDOW
 from a2m_torch.device import resolve_device
 from a2m_torch.models.discriminator import Discriminator
 from a2m_torch.models.generator import Generator
+from a2m_torch.utils.profiling import trace_annotation
 from a2m_torch.weights import from_jax_variables, load_generator_npz
 
 SR = 45600            # nominal PATS sample rate
@@ -66,16 +67,21 @@ def load_generator(npz=None, config: GeneratorConfig = GeneratorConfig(),
 
 def audio_to_pose_fn(model: Generator, device):
     """``audio_to_pose(waveform (B, N)) -> pose (B, 64, 104)`` around an
-    eval-mode generator that lies on ``device``."""
+    eval-mode generator that lies on ``device``.  A call is the span
+    ``a2m.window``, with ``a2m.window.frontend`` (the move to the device
+    and the log-mel) and ``a2m.window.generator`` below it."""
     dev = torch.device(device)
     spec = pose_rate_spec()
 
+    @trace_annotation('a2m.window')
     def audio_to_pose(waveform) -> torch.Tensor:
         with torch.inference_mode():
-            y = torch.as_tensor(waveform).to(dev)
-            feats = frontend.log_mel(y, spec, exact=False,
-                                     n_frames=FRAMES_PER_WINDOW)
-            return model(feats)
+            with trace_annotation('a2m.window.frontend'):
+                y = torch.as_tensor(waveform).to(dev)
+                feats = frontend.log_mel(y, spec, exact=False,
+                                         n_frames=FRAMES_PER_WINDOW)
+            with trace_annotation('a2m.window.generator'):
+                return model(feats)
 
     return audio_to_pose
 

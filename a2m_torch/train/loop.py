@@ -360,9 +360,12 @@ class Trainer:
         # the previous batch (a synchronous loop also appends batch i's
         # losses after batch i).  So batch i - 1's metrics are read while
         # batch i's G updates are in flight, and the controller sees the
-        # same loss sequence as a synchronous loop.
+        # same loss sequence as a synchronous loop.  The read is the span
+        # ``a2m.train.drain``: the one place in a batch where the host
+        # waits for the card.
         pending = None                  # previous batch's (gm, dm | None)
 
+        @profiling.trace_annotation('a2m.train.drain')
         def drain(p) -> None:
             nonlocal last_g, last_d
             gm_p, dm_p = p

@@ -68,6 +68,7 @@ from a2m_torch.nn import masking
 from a2m_torch.nn.graph import GCNStack
 from a2m_torch.parallel import mesh
 from a2m_torch.parallel import tensor as tp_ops
+from a2m_torch.utils.profiling import trace_annotation
 
 
 @dataclass
@@ -260,26 +261,31 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
         the BatchNorm statistics (its forward runs in train mode).
         ``style``: optional (B,) speaker ids; ``mask``: optional (B,) 1/0
         weights of wrap-padded rows; ``key``: the ``torch.Generator`` of the
-        label noise."""
-        g, d = g_state.model.train(), d_state.model.train()
-        real_pose = normalize_pose_device(pose, mean, std)
-        real_motion = L.pos_to_motion(real_pose)
-        g_state.optimizer.zero_grad(set_to_none=True)
-        with masking.batch_mask(mask), _frozen(d):
-            fake_pose = g(audio, speaker_ids=style)
-            fake_motion = L.pos_to_motion(fake_pose)
-            fake_d, _ = d(fake_motion, d_audio(audio))
-        valid = smooth_labels(key, audio.shape[0], fake_d.shape[-1], smooth,
-                              noise_std, is_real=True, device=audio.device)
-        kin = masked_motion_losses(real_pose, real_motion, fake_pose,
-                                   fake_motion, mask)
-        g_loss = (kin['reg'] + cfg.lambda_gan
-                  * L.masked_mean((fake_d - valid) ** 2, mask))
-        total = (g_loss + cfg.lambda_smooth * kin['smooth']
-                 + cfg.lambda_jerk * kin['jerk'] + kin['bone']
-                 + kin['angle'] + cfg.lambda_pos * kin['pos'])
-        total.backward()
-        step_optimizer(g_state)
+        label noise.  Its spans: ``a2m.g_step.forward`` (to the total
+        loss), ``.backward`` and ``.optimizer``."""
+        with trace_annotation('a2m.g_step.forward'):
+            g, d = g_state.model.train(), d_state.model.train()
+            real_pose = normalize_pose_device(pose, mean, std)
+            real_motion = L.pos_to_motion(real_pose)
+            g_state.optimizer.zero_grad(set_to_none=True)
+            with masking.batch_mask(mask), _frozen(d):
+                fake_pose = g(audio, speaker_ids=style)
+                fake_motion = L.pos_to_motion(fake_pose)
+                fake_d, _ = d(fake_motion, d_audio(audio))
+            valid = smooth_labels(key, audio.shape[0], fake_d.shape[-1],
+                                  smooth, noise_std, is_real=True,
+                                  device=audio.device)
+            kin = masked_motion_losses(real_pose, real_motion, fake_pose,
+                                       fake_motion, mask)
+            g_loss = (kin['reg'] + cfg.lambda_gan
+                      * L.masked_mean((fake_d - valid) ** 2, mask))
+            total = (g_loss + cfg.lambda_smooth * kin['smooth']
+                     + cfg.lambda_jerk * kin['jerk'] + kin['bone']
+                     + kin['angle'] + cfg.lambda_pos * kin['pos'])
+        with trace_annotation('a2m.g_step.backward'):
+            total.backward()
+        with trace_annotation('a2m.g_step.optimizer'):
+            step_optimizer(g_state)
         metrics = dict(g_loss=total, g_gan=g_loss, smooth=kin['smooth'],
                        jerk=kin['jerk'], bone=kin['bone'], angle=kin['angle'])
         return g_state, d_state, _reported(metrics)
@@ -291,32 +297,38 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
         metrics)``: D moved; of G only the BatchNorm statistics (its
         gradient-free forward runs in train mode, dropout on).  With
         ``cfg.lambda_aux > 0`` and ``style`` labels the aux classifier CE on
-        the real branch is added."""
-        g, d = g_state.model.train(), d_state.model.train()
-        real_pose = normalize_pose_device(pose, mean, std)
-        real_motion = L.pos_to_motion(real_pose)
-        with torch.no_grad(), masking.batch_mask(mask), \
-                _fused_stacks(g, fused_eval):
-            fake_motion = L.pos_to_motion(g(audio, speaker_ids=style))
-        d_state.optimizer.zero_grad(set_to_none=True)
-        with masking.batch_mask(mask):
-            fake_d, _ = d(fake_motion, d_audio(audio))
-            real_d, aux_real = d(real_motion, d_audio(audio))
-        dev = audio.device
-        valid = smooth_labels(key, audio.shape[0], real_d.shape[-1],
-                              smooth_r, noise_std, is_real=True, device=dev)
-        fake = smooth_labels(key, audio.shape[0], fake_d.shape[-1], smooth_f,
-                             noise_std, is_real=False, device=dev)
-        real_loss = L.masked_mean((real_d - valid) ** 2, mask)
-        fake_loss = L.masked_mean((fake_d - fake) ** 2, mask)
-        total = real_loss + cfg.lambda_d * fake_loss
-        metrics = dict(d_loss=total, d_real=real_loss, d_fake=fake_loss)
-        if cfg.lambda_aux > 0 and style is not None:
-            aux_l = aux_cross_entropy(aux_real, style, mask)
-            total = total + cfg.lambda_aux * aux_l
-            metrics = dict(metrics, d_loss=total, d_aux=aux_l)
-        total.backward()
-        step_optimizer(d_state)
+        the real branch is added.  Its spans: ``a2m.d_step.forward`` (to
+        the total loss), ``.backward`` and ``.optimizer``."""
+        with trace_annotation('a2m.d_step.forward'):
+            g, d = g_state.model.train(), d_state.model.train()
+            real_pose = normalize_pose_device(pose, mean, std)
+            real_motion = L.pos_to_motion(real_pose)
+            with torch.no_grad(), masking.batch_mask(mask), \
+                    _fused_stacks(g, fused_eval):
+                fake_motion = L.pos_to_motion(g(audio, speaker_ids=style))
+            d_state.optimizer.zero_grad(set_to_none=True)
+            with masking.batch_mask(mask):
+                fake_d, _ = d(fake_motion, d_audio(audio))
+                real_d, aux_real = d(real_motion, d_audio(audio))
+            dev = audio.device
+            valid = smooth_labels(key, audio.shape[0], real_d.shape[-1],
+                                  smooth_r, noise_std, is_real=True,
+                                  device=dev)
+            fake = smooth_labels(key, audio.shape[0], fake_d.shape[-1],
+                                 smooth_f, noise_std, is_real=False,
+                                 device=dev)
+            real_loss = L.masked_mean((real_d - valid) ** 2, mask)
+            fake_loss = L.masked_mean((fake_d - fake) ** 2, mask)
+            total = real_loss + cfg.lambda_d * fake_loss
+            metrics = dict(d_loss=total, d_real=real_loss, d_fake=fake_loss)
+            if cfg.lambda_aux > 0 and style is not None:
+                aux_l = aux_cross_entropy(aux_real, style, mask)
+                total = total + cfg.lambda_aux * aux_l
+                metrics = dict(metrics, d_loss=total, d_aux=aux_l)
+        with trace_annotation('a2m.d_step.backward'):
+            total.backward()
+        with trace_annotation('a2m.d_step.optimizer'):
+            step_optimizer(d_state)
         return d_state, g_state, _reported(metrics)
 
     @mesh.global_batch()

@@ -15,14 +15,20 @@ trainer (``pipeline.build_trainer``) and profile that step on one seeded
 batch.  It
 profiles ``iters`` calls after a warm-up and prints one JSON object: the
 wall time per call (host clock around a synchronised window), the summed
-kernel time per call, the device's idle share of the window, the kernel
-time per category (the port's kernels, convolutions, GEMMs, everything
-else) and the largest kernels.
+kernel time per call, the device's idle share of the window (from the
+union of its kernels' and copies' intervals, so that work that overlaps is
+counted once), the idle time per call by the innermost ``a2m.*`` span
+around it, the kernel time per category (the port's kernels, convolutions,
+GEMMs, everything else) and the largest kernels.
 
-For the training loop (a2m's ``profiling.py:18-53``): :func:`trace_annotation`
-names a region in a trace (``torch.profiler.record_function``),
+:func:`trace_annotation` names a region in a trace
+(``torch.profiler.record_function``; a2m's ``profiling.py:18-53``): the
+program's spans, all named ``a2m.*``, sit at the boundaries of its layers
+(``a2m.serve`` and its stages in ``eval/streaming.py``, ``a2m.window`` in
+``pipeline.audio_to_pose_fn``, ``a2m.g_step`` / ``a2m.d_step`` and their
+forward, backward and optimizer in the train steps, ``a2m.train.drain``).
 :func:`device_trace` writes a ``torch.profiler`` trace of the code it
-wraps, and :class:`Timers` keeps host wall-clock totals by name.
+wraps.
 """
 
 from __future__ import annotations
@@ -33,7 +39,6 @@ import json
 import os
 import subprocess
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import torch
@@ -56,9 +61,20 @@ CATEGORIES = (
 )
 
 
+#: the innermost span's name for idle time that no ``a2m.*`` span covers
+OUTSIDE_SPANS = 'outside spans'
+#: the region around :func:`kernel_breakdown`'s profiled calls
+WINDOW = 'profiling.window'
+
+
 @contextlib.contextmanager
 def trace_annotation(name: str):
-    """Named region visible in a ``torch.profiler`` trace."""
+    """Named region visible in a ``torch.profiler`` trace.  With no
+    profiler running it reads one flag and enters nothing (a
+    ``record_function`` costs ~13 us even then)."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        yield
+        return
     with torch.profiler.record_function(name):
         yield
 
@@ -81,28 +97,6 @@ def device_trace(logdir):
     written.append(path)
 
 
-class Timers:
-    """Cumulative host-side wall-clock timers."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> dict[str, dict[str, float]]:
-        return {k: dict(total_s=self.totals[k], count=self.counts[k],
-                        mean_ms=1e3 * self.totals[k] / max(self.counts[k], 1))
-                for k in self.totals}
-
-
 def category(name: str) -> str:
     low = name.lower()
     for cat, keys in CATEGORIES:
@@ -111,29 +105,80 @@ def category(name: str) -> str:
     return 'other'
 
 
+def union(intervals) -> list[tuple[float, float]]:
+    """The union of ``(start, end)`` intervals, sorted and disjoint."""
+    out: list[list[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def idle_by_span(device, spans, start: float, end: float
+                 ) -> tuple[float, dict[str, float]]:
+    """(busy seconds, idle seconds by span) of the window ``[start, end]``:
+    ``device`` the card's (start, end) intervals, taken as a union;
+    ``spans`` the host's (name, start, end) spans.  Each idle gap goes to
+    the innermost span around its middle, or to :data:`OUTSIDE_SPANS`."""
+    busy = union((max(a, start), min(b, end)) for a, b in device
+                 if b > start and a < end)
+    gaps, t = [], start
+    for a, b in busy + [(end, end)]:
+        if a > t:
+            gaps.append((t, a))
+        t = max(t, b)
+    idle: dict[str, float] = {}
+    for a, b in gaps:
+        mid = (a + b) / 2
+        around = [(s1 - s0, name) for name, s0, s1 in spans
+                  if s0 <= mid <= s1]
+        inner = min(around)[1] if around else OUTSIDE_SPANS
+        idle[inner] = idle.get(inner, 0.0) + b - a
+    return sum(b - a for a, b in busy), idle
+
+
 def kernel_breakdown(fn, iters: int) -> dict:
     """Profile ``iters`` calls of ``fn`` (already warm) on the card."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / iters * 1e3
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / iters * 1e3
+    device, spans, window = [], [], None
+    for e in prof.profiler.kineto_results.events():
+        name, a, b = e.name(), e.start_ns() * 1e-9, e.end_ns() * 1e-9
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            # a span also shows on the card's timeline: no device work
+            annotation = getattr(e, 'is_user_annotation', lambda: False)()
+            if not (annotation or name.startswith(('a2m.', WINDOW))):
+                device.append((a, b))
+        elif name == WINDOW:
+            window = (a, b)
+        elif name.startswith('a2m.'):
+            spans.append((name, a, b))
+    busy_s, idle = idle_by_span(device, spans, *window)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith(('a2m.', WINDOW))]
     per_call = sorted(((e.key, e.self_device_time_total / 1e3 / iters,
                         e.count / iters) for e in kernels),
                       key=lambda r: -r[1])
-    busy = sum(ms for _, ms, _ in per_call)
     cats: dict[str, float] = {}
     for name, ms, _ in per_call:
         cats[category(name)] = cats.get(category(name), 0.0) + ms
-    return dict(wall_ms=wall, kernel_ms=busy,
-                idle_share=max(0.0, 1.0 - busy / wall),
+    return dict(wall_ms=wall, kernel_ms=sum(ms for _, ms, _ in per_call),
+                busy_ms=busy_s * 1e3 / iters,
+                idle_share=1.0 - busy_s / (window[1] - window[0]),
+                idle_ms_by_span={k: v * 1e3 / iters for k, v in sorted(
+                    idle.items(), key=lambda kv: -kv[1])},
                 categories_ms=cats,
                 top=[dict(name=n[:96], ms=ms, launches=c)
                      for n, ms, c in per_call[:15]])

@@ -207,7 +207,7 @@ def _a2m_prefetcher(num_style_speakers=0, lambda_aux=0.0, depth=2,
 
 
 def _port_trainer(num_style_speakers=0, lambda_aux=0.0, depth=2,
-                  aux_classes=10, loader=None, **kw):
+                  aux_classes=10, loader=None, log_mfu=True, **kw):
     from a2m_torch.config import DiscriminatorConfig, GeneratorConfig
     from a2m_torch.models.discriminator import Discriminator
     from a2m_torch.models.generator import Generator
@@ -219,7 +219,8 @@ def _port_trainer(num_style_speakers=0, lambda_aux=0.0, depth=2,
         use_aux_classifier=lambda_aux > 0))
     return Trainer(g, d, TrainConfig(lambda_aux=lambda_aux,
                                      prefetch_batches=depth,
-                                     log_every_batches=1000),
+                                     log_every_batches=1000,
+                                     log_mfu=log_mfu),
                    log=lambda line: None, loader=loader, **kw)
 
 
@@ -324,3 +325,112 @@ def test_fit_over_loader_matches_tuple_batches(pats_root, two_threads):
     for (name, p), q in zip(a.g_state.model.named_parameters(),
                             b.g_state.model.parameters()):
         assert torch.equal(p, q), name
+
+
+# ---- the program's spans ------------------------------------------------------
+
+#: each path's spans below its root, in the order one call opens them
+SPANS = {
+    'stream': ('a2m.serve', ['a2m.serve.stage', 'a2m.serve.upload',
+                             'a2m.serve.frontend', 'a2m.serve.gather',
+                             'a2m.serve.generator', 'a2m.serve.blend',
+                             'a2m.serve.download']),
+    'window': ('a2m.window', ['a2m.window.frontend', 'a2m.window.generator']),
+}
+STEP_SPANS = ('forward', 'backward', 'optimizer')
+
+
+@pytest.fixture(scope='module')
+def span_trainer():
+    """The tiny trainer over one seeded batch of one row, its MFU line off
+    (as in every epoch after a run's first)."""
+    gen = torch.Generator().manual_seed(0)
+    batch = (torch.randn(1, 64, 128, generator=gen),
+             torch.randn(1, 64, 104, generator=gen) * 10 + 300, None,
+             torch.ones(1))
+    return _port_trainer(depth=0, log_mfu=False, train_batches=[batch])
+
+
+def _program_spans(fn) -> list:
+    """(name, start, end) of each ``a2m.*`` span that one call of ``fn``
+    opens under ``torch.profiler``, in order of start."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted(((e.name(), e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith('a2m.')), key=lambda s: s[1])
+
+
+@pytest.mark.parametrize('path', ['stream', 'window', 'train'])
+def test_spans_open_in_order_under_their_root(span_trainer, path,
+                                              two_threads):
+    """A call of the serving path, the window path or a training epoch
+    opens its spans in order, each one level below its root and inside
+    it."""
+    from a2m_torch.eval import streaming
+    from a2m_torch.pipeline import CLIP_SECONDS, SR, audio_to_pose_fn
+    rng = np.random.default_rng(1)
+    model = span_trainer.g_state.model
+    if path == 'stream':
+        waves = [(rng.standard_normal(SR * 5) * 0.1).astype(np.float32)
+                 for _ in range(2)]
+        spans = _program_spans(lambda: streaming.stream_from_waveforms(
+            model.eval(), waves, SR))
+    elif path == 'window':
+        wave = torch.from_numpy(rng.standard_normal(
+            (1, int(SR * CLIP_SECONDS))).astype(np.float32) * 0.1)
+        spans = _program_spans(
+            lambda: audio_to_pose_fn(model.eval(), 'cpu')(wave))
+    else:
+        spans = _program_spans(lambda: span_trainer.train_epoch(0))
+    # a span's parent: the shortest other span around it
+    parents = [min((o for o in spans if o is not s and o[1] <= s[1]
+                    and s[2] <= o[2]), key=lambda o: o[2] - o[1],
+                   default=None) for s in spans]
+    roots = [s[0] for s, p in zip(spans, parents) if p is None]
+    children = [(s[0], p[0]) for s, p in zip(spans, parents) if p]
+    if path == 'train':
+        n_g = roots.count('a2m.g_step')
+        assert n_g >= 1 and roots == (['a2m.g_step'] * n_g + ['a2m.d_step']
+                                      + ['a2m.train.drain'])
+        want = [f'{root}.{k}' for root in roots[:-1] for k in STEP_SPANS]
+    else:
+        root, want = SPANS[path]
+        assert roots == [root]
+    assert [name for name, _ in children] == want
+    assert all(parent == name.rsplit('.', 1)[0]
+               for name, parent in children)
+
+
+def test_trace_annotation_enters_nothing_without_a_profiler(monkeypatch):
+    """With no profiler running a span enters no ``record_function``; under
+    one it does (the replacement raises there)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from a2m_torch.utils import profiling
+
+    def record_function(name):
+        raise AssertionError(f'record_function({name!r}) entered')
+
+    monkeypatch.setattr(torch.profiler, 'record_function', record_function)
+    with profiling.trace_annotation('a2m.test'):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(AssertionError, match='a2m.test'):
+            with profiling.trace_annotation('a2m.test'):
+                pass
+
+
+def test_idle_by_span_takes_the_union_of_overlapping_intervals():
+    """``kernel_breakdown``'s reduction: overlapping device intervals count
+    once, and each idle gap goes to the innermost span around it."""
+    from a2m_torch.utils.profiling import OUTSIDE_SPANS, idle_by_span
+    device = [(1.0, 3.0), (2.0, 4.0), (2.5, 3.5),      # one union, 1-4
+              (6.0, 7.0), (9.0, 12.0)]                 # the last is clipped
+    spans = [('a2m.serve', 0.0, 7.5), ('a2m.serve.stage', 4.0, 6.0)]
+    busy, idle = idle_by_span(device, spans, 0.0, 10.0)
+    assert busy == pytest.approx(3.0 + 1.0 + 1.0)      # not 2 + 2 + 1 + ...
+    assert idle == pytest.approx({'a2m.serve': 1.0,         # 0-1
+                                  'a2m.serve.stage': 2.0,   # 4-6
+                                  OUTSIDE_SPANS: 2.0})      # 7-9
