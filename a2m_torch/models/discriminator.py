@@ -30,6 +30,19 @@ from a2m_torch.nn.layers import (Conv1d, Linear, SelfAttention,
 from a2m_torch.nn.masking import MaskedBatchNorm
 from a2m_torch.parallel import tensor as tp_ops
 
+#: (input length, output length, device, dtype) -> the pooling matrix there
+_pool_matrices: dict = {}
+
+
+def _pool_matrix(in_len: int, out_len: int, like: torch.Tensor
+                 ) -> torch.Tensor:
+    """:func:`adaptive_pool_matrix` on ``like``'s device and in its dtype,
+    built once and kept: a step then makes no host-to-device copy."""
+    key = (in_len, out_len, like.device, like.dtype)
+    if key not in _pool_matrices:
+        _pool_matrices[key] = adaptive_pool_matrix(in_len, out_len).to(like)
+    return _pool_matrices[key]
+
 
 class _ConvBNLReLU(nn.Module):
     """Conv -> BN -> LeakyReLU(0.2) -> cast to ``dtype`` -> Dropout: D's
@@ -169,7 +182,7 @@ class Discriminator(nn.Module):
         if audio is not None:
             a = self.audio_fusion(audio)
             if a.shape[1] != t:
-                w = adaptive_pool_matrix(a.shape[1], t).to(a)
+                w = _pool_matrix(a.shape[1], t, a)
                 a = torch.einsum('os,bsc->boc', w, a)
             x = torch.cat([x, a], dim=-1)
 

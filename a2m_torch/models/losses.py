@@ -65,9 +65,21 @@ def _bone_indices() -> tuple[np.ndarray, np.ndarray]:
     return child, parents[child].astype(np.int64)
 
 
+#: (index values, device) -> their long tensor on that device
+_indices: dict = {}
+
+
 def _index(values, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(values), dtype=torch.long,
-                           device=device)
+    """``values`` as a long index tensor on ``device``, built once per
+    device and kept: a step reads its joint and bone indices without a
+    host-to-device copy, which would wait for the card (and which a CUDA
+    graph cannot hold)."""
+    values = np.asarray(values, dtype=np.int64)
+    key = (values.tobytes(), torch.device(device))
+    hit = _indices.get(key)
+    if hit is None:
+        hit = _indices[key] = torch.as_tensor(values, device=device)
+    return hit
 
 
 def bone_lengths(pose: torch.Tensor) -> torch.Tensor:

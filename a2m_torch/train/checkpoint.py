@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from a2m_torch.parallel import launch, mesh
+from a2m_torch.train.train_step import place_adam
 from a2m_torch.weights import load_generator_npz, to_jax_variables
 
 _EPOCH_FILE = re.compile(r'^epoch_(\d+)\.pt$')
@@ -125,6 +126,8 @@ class CheckpointManager:
                 mesh.load_full_optimizer_state(
                     state.optimizer, state.model,
                     payload[f'{prefix}_optimizer'])
+                # the file's Adam settings are its writer's device's
+                place_adam(state.optimizer)
         return payload
 
     def save_best_generator(self, model: nn.Module, mean=None,

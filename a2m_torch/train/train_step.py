@@ -23,6 +23,11 @@ Semantics kept from a2m:
 * Adam with betas (0.9, 0.999), eps 1e-8 and a learning rate set from the
   host; optional global-norm clipping by optax's rule.
 
+On one card (CUDA, no process group) ``g_step`` and ``d_step`` run as CUDA
+graphs (:mod:`a2m_torch.train.graphs`), and Adam is capturable on CUDA
+(its step counts and learning rate on the card) whether a step is a graph
+or not.
+
 Label noise draws from the explicit ``torch.Generator`` a step is given;
 dropout draws from the device's default generator, as ``nn.Dropout`` does.
 
@@ -68,6 +73,7 @@ from a2m_torch.nn import masking
 from a2m_torch.nn.graph import GCNStack
 from a2m_torch.parallel import mesh
 from a2m_torch.parallel import tensor as tp_ops
+from a2m_torch.train import graphs
 from a2m_torch.utils.profiling import trace_annotation
 
 
@@ -79,14 +85,45 @@ class NetState:
 
 def make_optimizer(params, lr: float) -> torch.optim.Adam:
     """Adam as a2m configures optax's: betas (0.9, 0.999), eps 1e-8 added
-    outside the square root, no weight decay."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    outside the square root, no weight decay.  On CUDA it is capturable
+    (:func:`place_adam`), so that a CUDA graph of a step can hold it and
+    an eager step computes as the graph does."""
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    place_adam(opt)
+    return opt
+
+
+def place_adam(optimizer: torch.optim.Optimizer) -> None:
+    """Adam's settings for its parameters' device, whatever a restored
+    ``state_dict`` carried: on CUDA capturable, with the step counts and
+    a 0-dim learning rate on the card (the bias corrections computed
+    there, no host scalar in a kernel); on the CPU the default, with host
+    step counts and a float learning rate."""
+    from torch.optim.optimizer import _get_scalar_dtype
+    for group in optimizer.param_groups:
+        dev = group['params'][0].device
+        on = dev.type == 'cuda'
+        group['capturable'] = on
+        lr = group['lr']
+        if on and not (isinstance(lr, torch.Tensor) and lr.device == dev):
+            group['lr'] = torch.full((), float(lr), device=dev)
+        elif not on and isinstance(lr, torch.Tensor):
+            group['lr'] = float(lr)
+        for p in group['params']:
+            state = optimizer.state.get(p, {})
+            if 'step' in state:
+                state['step'] = state['step'].to(
+                    device=dev if on else 'cpu', dtype=_get_scalar_dtype())
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Overwrite the learning rate of every parameter group."""
+    """Overwrite the learning rate of every parameter group (in place where
+    it is a device tensor, which a CUDA graph of the step reads)."""
     for group in optimizer.param_groups:
-        group['lr'] = float(lr)
+        if isinstance(group['lr'], torch.Tensor):
+            group['lr'].fill_(float(lr))
+        else:
+            group['lr'] = float(lr)
 
 
 def clip_by_global_norm(params, max_norm: float, sliced=(),
@@ -364,4 +401,6 @@ def make_train_steps(g_model: nn.Module, d_model: nn.Module,
             angle=kin['angle'], smooth=kin['smooth'], jerk=kin['jerk'],
             val_pck=val_pck))
 
-    return g_step, d_step, eval_step
+    pool: list = []                 # the graphs' one memory pool
+    return (graphs.GraphedStep(g_step, 'g', pool),
+            graphs.GraphedStep(d_step, 'd', pool), eval_step)

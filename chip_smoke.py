@@ -884,7 +884,10 @@ def train_phase() -> dict:
     lp_f = trainer.controller.label_params(0, is_real=False)
 
     def snapshot(model):
-        return ({k: v.clone() for k, v in model.named_parameters()},
+        # detached: a clone under autograd would keep each parameter's
+        # gradient accumulator alive on the default stream, and a step's
+        # CUDA graph cannot be captured while one is
+        return ({k: v.detach().clone() for k, v in model.named_parameters()},
                 {k: v.clone() for k, v in model.named_buffers()})
 
     def same(before: dict, model_items) -> bool:
@@ -2373,7 +2376,10 @@ def instrumented_run(cfg, loader, device, log):
 
     def timed(fn, key):
         def wrapper(*args, **kwargs):
-            if not current.get('timing'):
+            # a step's CUDA graph is captured in one process, which has no
+            # collective to time and cannot synchronise inside a capture
+            if (not current.get('timing')
+                    or torch.cuda.is_current_stream_capturing()):
                 return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()

@@ -52,3 +52,6 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         'markers', 'slow: full-size runs kept out of tier-1 (-m "not slow")')
+    config.addinivalue_line(
+        'markers', 'chip: needs a CUDA card; skips itself without one (run '
+        'there with --noconftest: the card\'s machine has no JAX)')
