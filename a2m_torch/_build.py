@@ -63,6 +63,11 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _D, _P],
         'a2m_log_mel_exact_info': [_I, _I, _I, _I, _I, _P],
     },
+    'rel_attention': {
+        'a2m_rel_attention': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

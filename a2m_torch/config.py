@@ -75,6 +75,62 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class TowerConfig:
+    """A WavLM speech tower (:mod:`a2m_torch.nn.wavlm`); the defaults are
+    WavLM-Large's published widths (huggingface.co/microsoft/wavlm-large,
+    ``config.json``), under its key names."""
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    conv_dim: tuple[int, ...] = (512,) * 7
+    conv_kernel: tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+    layer_norm_eps: float = 1e-5
+    #: the waveform's sample rate, Hz
+    sample_rate: int = 16000
+
+
+#: WavLM-Large at its published widths
+WAVLM_LARGE = TowerConfig()
+
+
+def validate_tower(t: TowerConfig) -> TowerConfig:
+    """Raise ``ValueError`` on a tower whose widths do not fit together;
+    returns ``t`` unchanged."""
+    problems = []
+    if min(t.hidden_size, t.num_hidden_layers, t.num_attention_heads,
+           t.intermediate_size, t.num_conv_pos_embeddings,
+           t.num_conv_pos_embedding_groups, t.sample_rate) < 1:
+        problems.append('every size must be at least 1')
+    if t.hidden_size % t.num_attention_heads:
+        problems.append(f'hidden_size {t.hidden_size} is not a multiple of '
+                        f'num_attention_heads {t.num_attention_heads}')
+    if t.hidden_size % t.num_conv_pos_embedding_groups:
+        problems.append(f'hidden_size {t.hidden_size} is not a multiple of '
+                        f'num_conv_pos_embedding_groups '
+                        f'{t.num_conv_pos_embedding_groups}')
+    if not len(t.conv_dim) == len(t.conv_kernel) == len(t.conv_stride) > 0:
+        problems.append(f'conv_dim, conv_kernel and conv_stride differ in '
+                        f'length: {t.conv_dim}, {t.conv_kernel}, '
+                        f'{t.conv_stride}')
+    if t.num_buckets < 4 or t.num_buckets % 4:
+        problems.append(f'num_buckets {t.num_buckets} must be a multiple '
+                        f'of 4')
+    elif t.max_bucket_distance <= t.num_buckets // 4:
+        problems.append(f'max_bucket_distance {t.max_bucket_distance} must '
+                        f'exceed num_buckets / 4')
+    if problems:
+        raise ValueError('tower: ' + '; '.join(problems))
+    return t
+
+
+@dataclass(frozen=True)
 class GeneratorConfig:
     time_steps: int = 64
     in_channels: int = 256
@@ -105,6 +161,11 @@ class GeneratorConfig:
     #: fused kernel's matmul operands in f32 instead of bf16 (a2m's
     #: ``fused_gcn_stack(precise=True)``)
     fused_precise: bool = False
+    #: the audio stage: None is the 2-D conv ``AudioEncoder`` over log-mel
+    #: windows; a :class:`TowerConfig` puts a WavLM speech tower over each
+    #: whole 16 kHz stream in its place, its features joined to the UNet's
+    #: ``in_channels`` at pose rate (:mod:`a2m_torch.nn.wavlm`)
+    tower: Optional[TowerConfig] = None
 
 
 @dataclass(frozen=True)
@@ -293,6 +354,8 @@ def validate(cfg: Config) -> Config:
         raise ValueError(
             'train.lambda_aux > 0 requires discriminator.use_aux_classifier')
     torch_dtype(cfg.train.compute_dtype)
+    if cfg.generator.tower is not None:
+        validate_tower(cfg.generator.tower)
     import torch.distributed as dist
     up = dist.is_available() and dist.is_initialized()
     rank, world = (dist.get_rank(), dist.get_world_size()) if up else (0, 1)

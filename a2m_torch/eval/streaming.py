@@ -13,6 +13,11 @@ path is :func:`stream_from_waveforms`: equal-length streams go through
 :func:`_fused_pipeline`, which keeps frontend, windowing, generator and
 blend on the device between one upload and one download.
 
+A generator with a speech tower (``GeneratorConfig.tower``) takes 16 kHz
+waveforms: its tower runs once over each whole stream (per length group)
+where the log-mel frontend would, and the windows are gathered from its
+features; the generator's forward is then its per-window stage.
+
 PyTorch runs eagerly, so a2m's jit cache (``_cached_apply``) has no
 counterpart, and the window chunks of the chunked route are not padded to a
 fixed batch size (rows of an eval-mode batch do not see each other).
@@ -32,6 +37,26 @@ from a2m_torch.utils.profiling import trace_annotation
 
 def _device_of(generator: torch.nn.Module) -> torch.device:
     return next(generator.parameters()).device
+
+
+def _tower_of(generator, sr: int):
+    """The generator's speech tower, or None; raises when ``sr`` is not
+    the tower's rate."""
+    tower = getattr(generator, 'tower', None)
+    if tower is not None and sr != tower.sample_rate:
+        raise ValueError(f'the speech tower takes {tower.sample_rate} Hz '
+                         f'waveforms; got sr={sr}. Resample on the host '
+                         f'first.')
+    return tower
+
+
+def _audio_frames(generator, sr: int, method: str, n_samples: int) -> int:
+    """Pose frames of one ``n_samples`` stream: the tower's count, or the
+    pose-rate log-mel's."""
+    tower = _tower_of(generator, sr)
+    if tower is not None:
+        return tower.num_frames(n_samples)
+    return frontend.num_frames(_pose_rate_spec(sr, method), n_samples)
 
 
 def window_starts(n_frames: int, window: int, hop: int) -> np.ndarray:
@@ -173,21 +198,31 @@ def _waveform_features(waveform, sr: int, method: str = 'log_mel_512',
 
 def _waveform_features_grouped(waveforms, sr: int,
                                method: str = 'log_mel_512',
-                               device='cuda') -> list:
+                               device='cuda', tower=None) -> list:
     """Feature extraction for S streams with as few device calls as
     possible: streams of equal sample count share one batched log_mel call
     (equal-length grouping keeps the centred reflect padding exact:
     zero-padding unequal streams to a common length would perturb their
-    last window)."""
-    spec = _pose_rate_spec(sr, method)
+    last window), or with ``tower`` one tower call (span
+    ``a2m.serve.tower``), each stream a sequence of its own length."""
     groups: dict[int, list[int]] = {}
     for i, w in enumerate(waveforms):
         groups.setdefault(int(np.shape(w)[-1]), []).append(i)
     feats: list = [None] * len(waveforms)
+
+    def extract(idxs):
+        # staged through pinned memory as the fused route stages: no
+        # pageable copy that blocks the host
+        y, _ = _upload([_as_tensor(waveforms[i]) for i in idxs],
+                       torch.device(device))
+        if tower is None:
+            return frontend.log_mel(y, _pose_rate_spec(sr, method),
+                                    exact=False)
+        with trace_annotation('a2m.serve.tower'):
+            return tower(y)
+
     with torch.inference_mode():
-        outs = [(idxs, frontend.log_mel(
-            torch.stack([_as_tensor(waveforms[i]) for i in idxs]).to(device),
-            spec, exact=False)) for idxs in groups.values()]
+        outs = [(idxs, extract(idxs)) for idxs in groups.values()]
         for idxs, out in outs:               # d2h after all launches
             out = out.cpu().numpy()
             for j, i in enumerate(idxs):
@@ -297,9 +332,14 @@ def _fused_pipeline(generator, sr: int, method: str, n_samples: int,
     round trip in between; the window index and the blend matrix are built
     once per (generator, length, wire format) and stay on the device.
     """
-    spec = _pose_rate_spec(sr, method)
     dev = _device_of(generator)
-    t = frontend.num_frames(spec, n_samples)
+    tower = _tower_of(generator, sr)
+    if tower is None:
+        spec = _pose_rate_spec(sr, method)
+    elif framed:
+        raise ValueError('the framed wire feeds the log-mel frontend; a '
+                         'generator with a speech tower takes waveforms')
+    t = _audio_frames(generator, sr, method, n_samples)
     idx, starts = _window_index(t, window, hop)
     blend_m = torch.from_numpy(_blend_matrix(starts, t, window)).to(dev)
     idx = torch.from_numpy(idx).to(dev)
@@ -316,10 +356,13 @@ def _fused_pipeline(generator, sr: int, method: str, n_samples: int,
                             f'(framed_n_samples must be the original '
                             f'per-stream sample count)')
                     feats = frontend.log_mel_frames(waves, spec, exact=False)
-                else:
+                elif tower is None:
                     feats = frontend.log_mel(waves, spec, exact=False)
+            if tower is not None:
+                with trace_annotation('a2m.serve.tower'):
+                    feats = tower(waves, t)         # (S, T, in_channels)
             with trace_annotation('a2m.serve.gather'):
-                wins = feats[:, idx]                 # (S, W, window, n_mels)
+                wins = feats[:, idx]                 # (S, W, window, C)
                 s, w_n = wins.shape[:2]
                 wins = wins.reshape(s * w_n, window, feats.shape[-1])
             with trace_annotation('a2m.serve.generator'):
@@ -344,7 +387,13 @@ def stream_from_waveform(generator, waveform, sr: int,
     if fused:
         return stream_from_waveforms(generator, [waveform], sr, method, hop,
                                      batch_size, fused=True)[0]
-    feats = _waveform_features(waveform, sr, method, _device_of(generator))
+    tower = _tower_of(generator, sr)
+    if tower is not None:
+        feats = _waveform_features_grouped([waveform], sr, method,
+                                           _device_of(generator), tower)[0]
+    else:
+        feats = _waveform_features(waveform, sr, method,
+                                   _device_of(generator))
     return stream_poses(generator, feats, hop=hop, batch_size=batch_size)
 
 
@@ -429,13 +478,20 @@ def stream_from_waveforms(generator, waveforms, sr: int,
     spans below it, one level deep: ``a2m.serve.stage`` and
     ``a2m.serve.upload`` per group, then per group ``.frontend``,
     ``.gather``, ``.generator`` and ``.blend``, and ``.download`` (where
-    the host waits for the card).  The chunked route has the root only."""
+    the host waits for the card).  The chunked route has the root and, per
+    length group, ``.stage`` and ``.upload``.
+
+    With a speech tower (``generator.tower``) the streams are 16 kHz
+    waveforms (``sr`` must be the tower's rate; ``method`` is not read),
+    and its call is the span ``a2m.serve.tower``, in place of the log-mel
+    in ``.frontend``, on either route."""
     window = constants.FRAMES_PER_WINDOW
     dev = _device_of(generator)
+    tower = _tower_of(generator, sr)
     if framed_n_samples is not None:
         spec = _pose_rate_spec(sr, method)
         frame_len = frontend.dft_matrices(spec)['frame_len']
-        n_frames = frontend.num_frames(spec, framed_n_samples)
+        n_frames = _audio_frames(generator, sr, method, framed_n_samples)
         shapes = {tuple(np.shape(w)[-2:]) for w in waveforms}
         if len(shapes) != 1 or next(iter(shapes))[-1] != frame_len:
             raise ValueError(
@@ -479,6 +535,6 @@ def stream_from_waveforms(generator, waveforms, sr: int,
     if encoding != 'linear':
         raise ValueError('non-linear wire encodings are decoded in the '
                          'fused pipeline; equal-length streams required')
-    feats = _waveform_features_grouped(waveforms, sr, method, dev)
+    feats = _waveform_features_grouped(waveforms, sr, method, dev, tower)
     return stream_poses_multi(generator, feats, hop=hop,
                               batch_size=batch_size)

@@ -6,6 +6,12 @@ hand decoder (J = 42), each around a 5-layer GCN stack -> pose (B, T, 104)
 in block layout ``[x0..x51, y0..y51]``.  ``dtype`` is a2m's compute dtype
 (``Generator(dtype=jnp.bfloat16)``; see :mod:`a2m_torch.nn.layers`): the
 parameters stay f32 and the pose comes out in f32.
+
+With ``GeneratorConfig.tower`` the audio stage is a WavLM speech tower
+(:class:`~a2m_torch.nn.wavlm.SpeechTower`, ``generator.tower``) that runs
+once over each whole 16 kHz stream, and the generator's ``forward`` takes
+windows of its (B, T, in_channels) features: the per-window stage alone
+(:meth:`Generator.window_stage`), with no ``AudioEncoder``.
 """
 
 from __future__ import annotations
@@ -83,8 +89,14 @@ class Generator(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
-        self.audio_encoder = AudioEncoder(base_channels=cfg.in_channels // 4,
-                                          p=cfg.dropout, dtype=dtype)
+        if cfg.tower is None:
+            self.tower = None
+            self.audio_encoder = AudioEncoder(
+                base_channels=cfg.in_channels // 4, p=cfg.dropout,
+                dtype=dtype)
+        else:
+            from a2m_torch.nn.wavlm import SpeechTower
+            self.tower = SpeechTower(cfg.tower, cfg.in_channels)
         if cfg.num_style_speakers > 0:
             # additive speaker-style bias over the encoder features
             self.style_emb = nn.Embedding(cfg.num_style_speakers,
@@ -110,13 +122,21 @@ class Generator(nn.Module):
 
     def forward(self, audio: torch.Tensor, time_steps: int | None = None,
                 speaker_ids: torch.Tensor | None = None) -> torch.Tensor:
-        feats = self.audio_encoder(audio, time_steps)
+        """Log-mel windows (B, T, 128), or with a tower its feature windows
+        (B, T, in_channels) -> pose (B, T, 104)."""
+        feats = (audio if self.tower is not None
+                 else self.audio_encoder(audio, time_steps))
         if self.config.num_style_speakers > 0:
             if speaker_ids is None:
                 speaker_ids = torch.zeros(audio.shape[0], dtype=torch.long,
                                           device=audio.device)
             style = cast(self.style_emb(speaker_ids.long()), self.dtype)
             feats = feats + style[:, None, :]
+        return self.window_stage(feats)
+
+    def window_stage(self, feats: torch.Tensor) -> torch.Tensor:
+        """Encoder features (B, T, in_channels) -> pose (B, T, 104): the
+        UNet and both decoders."""
         feats = self.unet(feats)
         body = self.body_decoder(feats)
         hand = self.hand_decoder(feats)

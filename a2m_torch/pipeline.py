@@ -11,6 +11,11 @@ with both GCN stacks on the edge-form kernel, behind
 :func:`a2m_torch.eval.streaming.stream_from_waveforms` (any number of
 streams of any length, f32 / int16 / mu-law / client-framed wires).
 
+:func:`build_pipeline` and :func:`build_server` take ``tower`` (a
+:class:`~a2m_torch.config.TowerConfig`, e.g. WavLM-Large's): a speech
+tower over 16 kHz audio, its weights drawn from a seed, in place of the
+log-mel and the ``AudioEncoder``, in front of the same window stage.
+
 :func:`build_trainer` is the training entry point: the flagship generator
 with its GCN stacks on the fused kernels and a default discriminator under
 :class:`a2m_torch.train.loop.Trainer`, fed by a data loader (``loader`` or
@@ -33,7 +38,8 @@ import torch
 
 from a2m_torch.audio import frontend
 from a2m_torch.config import (AudioConfig, DataConfig, DiscriminatorConfig,
-                              GeneratorConfig, TrainConfig, torch_dtype)
+                              GeneratorConfig, TowerConfig, TrainConfig,
+                              torch_dtype)
 from a2m_torch.constants import AUDIO_FS_MAP, FRAMES_PER_WINDOW
 from a2m_torch.device import resolve_device
 from a2m_torch.models.discriminator import Discriminator
@@ -55,31 +61,54 @@ def pose_rate_spec() -> frontend.MelSpec:
 
 
 def load_generator(npz=None, config: GeneratorConfig = GeneratorConfig(),
-                   device='cuda') -> Generator:
+                   device='cuda', tower_seed: int = 0) -> Generator:
     """Generator in eval mode with a2m weights from a packed ``.npz``
-    (default: the committed flagship)."""
+    (default: the committed flagship).  With ``config.tower`` the ``.npz``
+    gives the window stage (its ``AudioEncoder`` is not used) and the
+    speech tower's weights are drawn from ``tower_seed`` on the device
+    (:func:`a2m_torch.nn.wavlm.seeded_state`): no tower checkpoint is in
+    the repository."""
     dev = resolve_device(device)
-    model = Generator(config)
     flat, _ = load_generator_npz(FLAGSHIP_NPZ if npz is None else npz)
-    model.load_state_dict(from_jax_variables(flat, model))
-    return model.to(dev).eval()
+    if config.tower is None:
+        model = Generator(config)
+        model.load_state_dict(from_jax_variables(flat, model))
+        return model.to(dev).eval()
+    with torch.device(dev):        # the tower's 315 M parameters
+        model = Generator(config).to(dev)
+    flat = {k: v for k, v in flat.items()
+            if k.split('/')[1] != 'audio_encoder'}
+    model.load_state_dict(from_jax_variables(flat, model, skip=('tower.',)),
+                          strict=False)
+    from a2m_torch.nn.wavlm import seeded_state
+    model.tower.load_hf_state(seeded_state(
+        config.tower, tower_seed, dev, config.in_channels))
+    return model.eval()
 
 
 def audio_to_pose_fn(model: Generator, device):
     """``audio_to_pose(waveform (B, N)) -> pose (B, 64, 104)`` around an
     eval-mode generator that lies on ``device``.  A call is the span
     ``a2m.window``, with ``a2m.window.frontend`` (the move to the device
-    and the log-mel) and ``a2m.window.generator`` below it."""
+    and the log-mel) and ``a2m.window.generator`` below it.  With a speech
+    tower the waveform is at the tower's rate (16 kHz), and the tower over
+    each clip, resampled to 64 frames, is ``a2m.window.tower`` in place of
+    the log-mel."""
     dev = torch.device(device)
     spec = pose_rate_spec()
+    tower = model.tower
 
     @trace_annotation('a2m.window')
     def audio_to_pose(waveform) -> torch.Tensor:
         with torch.inference_mode():
             with trace_annotation('a2m.window.frontend'):
                 y = torch.as_tensor(waveform).to(dev)
-                feats = frontend.log_mel(y, spec, exact=False,
-                                         n_frames=FRAMES_PER_WINDOW)
+                if tower is None:
+                    feats = frontend.log_mel(y, spec, exact=False,
+                                             n_frames=FRAMES_PER_WINDOW)
+            if tower is not None:
+                with trace_annotation('a2m.window.tower'):
+                    feats = tower(y, FRAMES_PER_WINDOW)
             with trace_annotation('a2m.window.generator'):
                 return model(feats)
 
@@ -87,25 +116,33 @@ def audio_to_pose_fn(model: Generator, device):
 
 
 def build_pipeline(npz=None, batch: int = 128, fused_gcn: bool = True,
-                   device='cuda'):
+                   device='cuda', tower: TowerConfig | None = None,
+                   tower_seed: int = 0):
     """The flagship audio->pose path.  ``fused_gcn`` routes both GCN stacks
     through the fused stack kernel with bf16 operands (a2m's
     ``fused_gcn=True, fused_rolled=True`` of ``bench.py:86``).  ``batch``
     sizes one warm-up call on silence that builds the kernels and lets cuDNN
-    pick its algorithms; 0 skips it."""
+    pick its algorithms; 0 skips it.  ``tower`` (e.g.
+    :data:`~a2m_torch.config.WAVLM_LARGE`) puts a WavLM speech tower,
+    drawn from ``tower_seed``, in front of the window stage: clips are then
+    4.3 s at 16 kHz."""
     dev = resolve_device(device)
-    config = GeneratorConfig(fused_gcn=fused_gcn)
-    audio_to_pose = audio_to_pose_fn(load_generator(npz, config, dev), dev)
+    config = GeneratorConfig(fused_gcn=fused_gcn, tower=tower)
+    model = load_generator(npz, config, dev, tower_seed)
+    audio_to_pose = audio_to_pose_fn(model, dev)
     if batch:
-        audio_to_pose(torch.zeros(batch, int(SR * CLIP_SECONDS),
+        sr = SR if tower is None else tower.sample_rate
+        audio_to_pose(torch.zeros(batch, int(sr * CLIP_SECONDS),
                                   device=dev))
     return audio_to_pose
 
 
 def build_server(npz=None, device='cuda', fused_edge: bool = True,
-                 fused_precise: bool = False):
-    """``serve(waveforms, sr=SR, **kw) -> list of (T_s, 104) float32
-    poses``: :func:`a2m_torch.eval.streaming.stream_from_waveforms` around
+                 fused_precise: bool = False,
+                 tower: TowerConfig | None = None, tower_seed: int = 0):
+    """``serve(waveforms, sr=None, **kw) -> list of (T_s, 104) float32
+    poses`` (``sr`` None: ``SR``, or the tower's rate):
+    :func:`a2m_torch.eval.streaming.stream_from_waveforms` around
     the flagship generator (weights from a packed ``.npz``, default the
     committed flagship) with its GCN stacks on the fused kernels:
     ``fused_edge`` takes the edge-form kernel, else the dense one; bf16
@@ -113,19 +150,25 @@ def build_server(npz=None, device='cuda', fused_edge: bool = True,
     (``method``, ``hop``, ``batch_size``, ``fused``, ``encoding``,
     ``pipeline_groups``, ``framed_n_samples``).  On CUDA the kernels are
     built here, before the first request; ``serve.generator`` is the
-    model."""
+    model.  ``tower`` (e.g. :data:`~a2m_torch.config.WAVLM_LARGE`) puts a
+    WavLM speech tower, drawn from ``tower_seed``, in front of the window
+    stage: ``serve`` then takes 16 kHz waveforms (``sr`` defaults to the
+    tower's rate), and each stream is one tower sequence, run whole."""
     from a2m_torch.eval import streaming
     dev = resolve_device(device)
     config = GeneratorConfig(fused_gcn=True, fused_edge=fused_edge,
-                             fused_precise=fused_precise)
-    generator = load_generator(npz, config, dev)
+                             fused_precise=fused_precise, tower=tower)
+    generator = load_generator(npz, config, dev, tower_seed)
+    default_sr = SR if tower is None else tower.sample_rate
     if dev.type == 'cuda':
         from a2m_torch import _build
-        _build.build(('log_mel',
-                      'gcn_stack_edge' if fused_edge else 'gcn_stack'))
+        stack = 'gcn_stack_edge' if fused_edge else 'gcn_stack'
+        _build.build((stack, 'rel_attention') if tower is not None
+                     else ('log_mel', stack))
 
-    def serve(waveforms, sr: int = SR, **kw):
-        return streaming.stream_from_waveforms(generator, waveforms, sr, **kw)
+    def serve(waveforms, sr: int | None = None, **kw):
+        return streaming.stream_from_waveforms(
+            generator, waveforms, default_sr if sr is None else sr, **kw)
 
     serve.generator = generator
     return serve

@@ -8,7 +8,10 @@ and which the counter therefore does not see.  Each stack launch adds the
 kernel's own cost function (``gcn_kernel.stack_flops`` for a forward, K1,
 K3 or K5; ``gcn_kernel.stack_bwd_flops`` for a backward, K4, which
 recomputes the forward), read off the wrappers' launch counters around the
-call.  On the CPU the stacks run their plain versions, which the counter
+call.  The speech tower's attention kernel (K6, ``nn/rel_attention.py``)
+is a CUDA launch the counter does not see either: each launch adds its
+QK^T and PV (``rel_attention_flops``, kept on ``rel_attention.flops``).
+On the CPU the stacks and K6 run their plain versions, which the counter
 sees, and no launch is added.
 
 In a data-parallel run every number is per rank: a rank's step over its
@@ -63,7 +66,8 @@ def _launches() -> dict[str, int]:
 
 def step_flops(fn, *args, **kwargs) -> tuple[object, float]:
     """Run ``fn(*args, **kwargs)`` once and count its operations: the aten
-    operations it dispatches, and the fused GCN stack kernels it launches.
+    operations it dispatches, and the fused GCN stack kernels and K6
+    launches it makes.
     Returns (the call's result, the operations).  The stacks are found by
     forward hooks on every :class:`~a2m_torch.nn.graph.GCNStack` during the
     call; each launch adds its kernel's cost at the stack's shape (N graphs
@@ -73,6 +77,7 @@ def step_flops(fn, *args, **kwargs) -> tuple[object, float]:
 
     from a2m_torch.nn import gcn_kernel
     from a2m_torch.nn.graph import GCNStack
+    from a2m_torch.nn.rel_attention import rel_attention
 
     runs: list[tuple] = []          # (shape args of the cost, under grad)
 
@@ -91,6 +96,7 @@ def step_flops(fn, *args, **kwargs) -> tuple[object, float]:
         lambda m, inputs: record(m, inputs) if isinstance(m, GCNStack)
         else None)
     before = _launches()
+    k6_before = rel_attention.flops
     try:
         with FlopCounterMode(display=False) as counter:
             out = fn(*args, **kwargs)
@@ -98,7 +104,8 @@ def step_flops(fn, *args, **kwargs) -> tuple[object, float]:
         hook.remove()
     after = _launches()
     launched = {k: after[k] - before[k] for k in after}
-    total = float(counter.get_total_flops())
+    total = float(counter.get_total_flops()) + (rel_attention.flops
+                                                 - k6_before)
     forwards = launched['gcn_stack'] + launched['gcn_stack_fwd'] + \
         launched['gcn_stack_edge']
     backwards = [shape for shape, grad in runs if grad]

@@ -25,7 +25,9 @@ GEMMs, everything else) and the largest kernels.
 (``torch.profiler.record_function``; a2m's ``profiling.py:18-53``): the
 program's spans, all named ``a2m.*``, sit at the boundaries of its layers
 (``a2m.serve`` and its stages in ``eval/streaming.py``, ``a2m.window`` in
-``pipeline.audio_to_pose_fn``, ``a2m.g_step`` / ``a2m.d_step`` and their
+``pipeline.audio_to_pose_fn``, ``a2m.serve.tower`` and ``a2m.window.tower``
+around a speech tower's call where one stands in for the log-mel, flat
+under their roots, ``a2m.g_step`` / ``a2m.d_step`` and their
 forward, backward and optimizer in the train steps, ``a2m.train.drain``).
 :func:`device_trace` writes a ``torch.profiler`` trace of the code it
 wraps.

@@ -66,14 +66,18 @@ def _port_layout(module: nn.Module, leaf: str, value: np.ndarray
     raise ValueError(f'no layout rule for a kernel of {type(module).__name__}')
 
 
-def from_jax_variables(flat: dict, model: nn.Module) -> dict:
-    """Flat a2m variables -> a complete state_dict for ``model``.
+def from_jax_variables(flat: dict, model: nn.Module,
+                       skip: tuple[str, ...] = ()) -> dict:
+    """Flat a2m variables -> a complete state_dict for ``model``, less the
+    entries whose names start with one of ``skip`` (parts a2m has no
+    weights for, such as a speech tower).
 
     ``flat`` keys are ``'params/a/b/kernel'`` strings (the npz layout) or
     tuples ``('params', 'a', 'b', 'kernel')`` (``flatten_dict`` of a flax
     ``variables`` tree).  Raises on a key that maps to no port entry, on a
     shape mismatch, and on any port entry left unset."""
-    expected = model.state_dict()
+    expected = {k: v for k, v in model.state_dict().items()
+                if not k.startswith(skip)} if skip else model.state_dict()
     out = {}
     for key, value in flat.items():
         parts = key.split('/') if isinstance(key, str) else list(key)

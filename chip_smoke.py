@@ -243,6 +243,15 @@ each fatal on failure:
    one process's, ms per step and the collectives' share are printed, and
    one process's f32 pairs with torch's deterministic algorithms on and
    off (host clock, and the card's busy time from ``torch.profiler``).
+17. The speech tower: K6 (``csrc/rel_attention.cu``) against its plain
+   version (the written-out bias) on q, k, v strided as the tower hands
+   them over, at 8 x 2,999 with and without the saturated key steps, at
+   T = 1,000 and T = 37, the launch counted where it happens; K6 timed at
+   the serving shape beside its bound, its plain version and torch's
+   attention given the bias as a mask; then ``build_server(tower=
+   WAVLM_LARGE)`` on 8 streams of 60 s (K6 x24 and K5 x2 a call, nothing
+   else; wall time and peak memory) and ``build_pipeline(tower=...)`` on
+   16 clips (K6 x24).
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 ``phase14_launches`` by part of phase 14, ``phase15_launches`` by part
@@ -4434,6 +4443,162 @@ def tp_phase(smi: str) -> dict:
     return out
 
 
+# ---- phase 17: the speech tower (K6) ----------------------------------------
+
+#: K6 against its plain version (the written-out bias, f32 on the same bf16
+#: operands): the largest gap over the plain output's largest magnitude, and
+#: the RMS gap over its RMS.  P is rounded to bf16 before its product (~2^-9
+#: of each weight) and exp2 is the hardware's approximation
+K6_MAX_TOL, K6_RMS_TOL = 1e-2, 4e-3
+#: (streams, T, flat): the serving shape with and without the saturated key
+#: steps, a T that is a multiple of neither tile (128 queries, 64 keys), and
+#: one shorter than a tile
+K6_CASES = ((8, 2999, True), (8, 2999, False), (3, 1000, True),
+            (2, 37, False))
+#: the tower's serving call: streams of 60 s at 16 kHz from host memory,
+#: and build_pipeline's clips
+TOWER_STREAMS, TOWER_SECONDS, TOWER_CLIPS = 8, 60, 16
+
+
+def k6_operands(b: int, t: int, seed: int, h: int = 16, d: int = 64):
+    """K6's operands as the tower hands them over: q, k, v bf16 views of
+    one (B, T, 3, H, D) projection, scores q.k/8 of spread ~1; gates in
+    [1, 2.5]; WavLM's table (320 buckets, distance 800) of an embedding of
+    spread 2, as the seeded tower draws it; and the table's flat
+    distance."""
+    import torch
+    from a2m_torch.nn import rel_attention as k6
+    from a2m_torch.nn import wavlm
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    qkv = torch.randn(b, t, 3, h, d, generator=gen, device='cuda')
+    q, k, v = qkv.bfloat16().unbind(2)
+    gates = 1 + 1.5 * torch.rand(b, t, h, generator=gen, device='cuda')
+    row = wavlm.relative_buckets(torch.arange(-(t - 1), t), 320, 800)
+    embed = 2 * torch.randn(320, h, generator=gen, device='cuda')
+    table = embed[row.cuda()].t().contiguous()
+    return (q, k, v, gates, table), k6.flat_distance(row)
+
+
+def k6_phase() -> dict:
+    """K6 against its plain version in each of ``K6_CASES``, the launch
+    counted where it happens; timed at the serving shape beside its bound,
+    its plain version and torch's attention given the bias as a mask."""
+    import torch
+    from a2m_torch.nn import rel_attention as k6
+    checks = []
+    for b, t, flat in K6_CASES:
+        args, dist = k6_operands(b, t, seed=t + b)
+        before = k6.rel_attention.launches
+        got = k6.rel_attention(*args, 0.125, dist if flat else None)
+        launched = k6.rel_attention.launches - before
+        torch.cuda.synchronize()
+        want = k6.rel_attention_plain(*args, 0.125)
+        diff = (got - want).double()
+        row = dict(b=b, t=t, flat=dist if flat else None, launches=launched,
+                   finite=bool(got.isfinite().all()),
+                   max_gap=float(diff.abs().max() / want.abs().max()),
+                   rms_gap=float(diff.pow(2).mean().sqrt()
+                                 / want.double().pow(2).mean().sqrt()))
+        checks.append(row)
+        print(f'k6: B={b} T={t} flat={row["flat"]}: {launched} launch, '
+              f'max gap {row["max_gap"]:.2e} (tol {K6_MAX_TOL:g}), rms gap '
+              f'{row["rms_gap"]:.2e} (tol {K6_RMS_TOL:g})', flush=True)
+        require(launched == 1 and row['finite']
+                and row['max_gap'] <= K6_MAX_TOL
+                and row['rms_gap'] <= K6_RMS_TOL, f'K6 against its plain '
+                f'version: {row}')
+        del got, want, diff, args
+    b, t, h, d = 8, 2999, 16, 64
+    (q, k, v, gates, table), dist = k6_operands(b, t, seed=0)
+    kernel = cuda_ms(lambda: k6.rel_attention(q, k, v, gates, table, 0.125,
+                                              dist))
+    plain = cuda_ms(lambda: k6.rel_attention_plain(q, k, v, gates, table,
+                                                   0.125), iters=3)
+    mask = (gates.permute(0, 2, 1)[..., None]
+            * table[:, k6.offsets(t).cuda()][None]).bfloat16()
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    library = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=0.125), iters=5)
+    del mask
+    bound_ms, bound_by = bound(k6.rel_attention_flops(b, h, t, d),
+                               k6.rel_attention_bytes(b, h, t, d), 989e12)
+    print(f'k6: B={b} H={h} T={t} D={d}: {kernel:.4f} ms a launch, bound '
+          f'{bound_ms:.4f} ms ({bound_by}, bf16 989 TFLOP/s), '
+          f'{bound_ms / kernel:.1%} of it; plain {plain:.2f} ms; torch\'s '
+          f'attention with the bias as a bf16 mask {library:.3f} ms',
+          flush=True)
+    return dict(checks=checks, ms=kernel, plain_ms=plain, library_ms=library,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def tower_phase(smi: str) -> dict:
+    """Phase 17: K6 (:func:`k6_phase`), then the tower configuration
+    through its entry points: ``build_server(tower=WAVLM_LARGE)`` on 8
+    streams of 60 s (a call's launches counted: K6 x24, K5 x2, nothing
+    else) and ``build_pipeline(tower=WAVLM_LARGE)`` on 16 clips (K6
+    x24)."""
+    import numpy as np
+    import torch
+    from a2m_torch.config import WAVLM_LARGE
+    from a2m_torch.nn import rel_attention as k6
+    from a2m_torch.pipeline import build_pipeline, build_server
+    t_phase = time.perf_counter()
+    out = dict(k6=k6_phase())
+    t0 = time.perf_counter()
+    serve = build_server(tower=WAVLM_LARGE, tower_seed=1234)
+    built_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(17)
+    n = WAVLM_LARGE.sample_rate * TOWER_SECONDS
+    waves = [(torch.randn(n, generator=gen) * 0.1).numpy()
+             for _ in range(TOWER_STREAMS)]
+    torch.cuda.reset_peak_memory_stats()
+    serve(waves)                      # warm-up: cuBLAS and cuDNN pick
+    reset_kernel_launches()
+    k6.rel_attention.launches = 0
+    poses = serve(waves)
+    launches = dict(kernel_launches(),
+                    rel_attention=k6.rel_attention.launches)
+    print(f'tower: launches in one call of {TOWER_STREAMS} x '
+          f'{TOWER_SECONDS} s {launches}', flush=True)
+    want = dict.fromkeys(launches, 0)
+    want.update(rel_attention=24, gcn_stack_edge=2)
+    require(launches == want, f'tower serving launches {launches}, '
+            f'expected rel_attention 24, gcn_stack_edge 2 and no other')
+    t_pose = n * 15 // WAVLM_LARGE.sample_rate
+    require(len(poses) == TOWER_STREAMS and all(
+        p.shape == (t_pose, 104) and np.isfinite(p).all() for p in poses),
+        f'tower poses {[p.shape for p in poses]}')
+    call_ms = host_ms(lambda: serve(waves))
+    peak = torch.cuda.max_memory_allocated()
+    del serve
+    torch.cuda.empty_cache()
+    audio_to_pose = build_pipeline(tower=WAVLM_LARGE, batch=TOWER_CLIPS)
+    clips = torch.randn(TOWER_CLIPS, 68800, generator=gen) * 0.1
+    reset_kernel_launches()
+    k6.rel_attention.launches = 0
+    pose = audio_to_pose(clips)
+    window = dict(kernel_launches(),
+                  rel_attention=k6.rel_attention.launches)
+    require(window['rel_attention'] == 24 and tuple(pose.shape) == (
+        TOWER_CLIPS, 64, 104) and bool(pose.isfinite().all()),
+        f'tower audio_to_pose: {tuple(pose.shape)}, launches {window}')
+    del audio_to_pose
+    torch.cuda.empty_cache()
+    out.update(launches=launches, window_launches=window, built_s=built_s,
+               call_ms=call_ms,
+               audio_s_per_s=TOWER_STREAMS * TOWER_SECONDS / call_ms * 1e3,
+               memory_peak_bytes=peak,
+               total_s=time.perf_counter() - t_phase)
+    print(f'tower [{smi}]: build_server {built_s:.1f} s; a call of '
+          f'{TOWER_STREAMS} x {TOWER_SECONDS} s {call_ms:.1f} ms (host '
+          f'clock, upload and download included), '
+          f'{out["audio_s_per_s"]:.0f} audio-s/s; peak memory '
+          f'{peak / 1e9:.2f} GB; audio_to_pose of {TOWER_CLIPS} clips K6 '
+          f'x{window["rel_attention"]}; phase {out["total_s"]:.1f} s',
+          flush=True)
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -4483,6 +4648,8 @@ def main() -> int:
     p15 = phase15_launches(bf16)
     tp = tp_phase(smi)
     print(json.dumps({'tp': tp, 'device': smi}))
+    tower = tower_phase(smi)
+    print(json.dumps({'tower': tower, 'device': smi}))
     artifact_launches = {name: a['launches']
                          for name, a in exp['artifacts'].items()}
     stack = dict(route='cuda', library_ms=None)
@@ -4517,13 +4684,19 @@ def main() -> int:
              max_abs_err=data['k2x']['max_abs_err'],
              **{k: data['k2x'][k] for k in ('ms', 'plain_ms', 'bound_ms',
                                             'bound_by', 'library_ms')}),
+        dict(name='rel_attention', route='cuda',
+             source='a2m_torch/csrc/rel_attention.cu', replaces=None,
+             launches=tower['launches']['rel_attention'],
+             **{k: tower['k6'][k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                            'bound_by', 'library_ms')}),
     ]
-    for k in kernels:
-        k['phase14_launches'] = p14[k['name']]
-        k['phase15_launches'] = p15[k['name']]
-        k['phase16_launches_a_rank'] = tp['launches'][k['name']]
+    for k in kernels:                 # phases 14-16 run no tower
+        k['phase14_launches'] = p14.get(k['name'], {})
+        k['phase15_launches'] = p15.get(k['name'], {})
+        k['phase16_launches_a_rank'] = tp['launches'].get(k['name'], 0)
     print(f'chip_smoke: phase 14 {migrate["total_s"]:.1f} s, phase 15 '
-          f'{bf16["total_s"]:.1f} s, phase 16 {tp["total_s"]:.1f} s, the '
+          f'{bf16["total_s"]:.1f} s, phase 16 {tp["total_s"]:.1f} s, phase '
+          f'17 {tower["total_s"]:.1f} s, the '
           f'whole script {time.perf_counter() - t_script:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
